@@ -6,14 +6,19 @@ it (nor JAX):
 
 - ``snipper_tpu_torch.ops``    -- deformable-attention sampling: the plain
                                   PyTorch version and the hand-written CUDA
-                                  kernel ``msda_forward``
+                                  kernels ``msda_forward``, ``msda_backward``
 - ``snipper_tpu_torch.models`` -- ResNet backbone, 3D sine position
                                   encoding, temporal deformable transformer,
                                   Snipper model
 - ``snipper_tpu_torch.convert`` -- JAX params / original-repo checkpoints ->
                                   the port's state dict
 - ``snipper_tpu_torch.infer``  -- snippet sampling, decoding, association
-- ``snipper_tpu_torch.cli``    -- ``python -m snipper_tpu_torch.cli.infer``
+- ``snipper_tpu_torch.data``, ``.matching``, ``.losses``, ``.train``,
+  ``.eval``, ``.utils``        -- the training slice: synthetic data and
+                                  loader, Hungarian matching, criterion,
+                                  optimizer and steps, metrics, logging
+- ``snipper_tpu_torch.cli``    -- ``python -m snipper_tpu_torch.cli.infer``,
+                                  ``python -m snipper_tpu_torch.cli.train``
 
 Entry points run on the GPU unless the CPU is asked for.
 """

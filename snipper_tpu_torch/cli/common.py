@@ -1,5 +1,6 @@
 """Shared CLI argument handling: one flag per ``Config`` field, mapped onto
-the dataclass (the port's own copy of ``snipper_tpu/cli/common.py:53-128``)."""
+the dataclass, and the data flags of the trainer (the port's own copy of
+``snipper_tpu/cli/common.py:53-155``)."""
 
 from __future__ import annotations
 
@@ -50,3 +51,50 @@ def build_config(args) -> Config:
         return cfg.replace(**overrides).validate()
     except ValueError as e:
         raise SystemExit(str(e)) from e
+
+
+# dataset flags of the JAX CLI whose loaders are not ported yet: the real
+# datasets are not in the repository
+DATASET_FLAGS = ("posetrack_dir", "coco_dir", "muco_dir", "jta_dir",
+                "panoptic_dir", "panoptic_protocol")
+
+
+def add_data_args(parser: argparse.ArgumentParser):
+    parser.add_argument("--preset", type=str, default=None,
+                        help=f"Config preset: {', '.join(PRESETS)}")
+    parser.add_argument("--synthetic", action="store_true",
+                        help="use the synthetic dataset (the default: the "
+                             "real datasets' loaders are not ported)")
+    parser.add_argument("--synthetic_samples", type=int, default=None,
+                        help="synthetic dataset size (default 64 train / "
+                             "8 val)")
+    parser.add_argument("--synthetic_distinct", type=int, default=None,
+                        help="limit the synthetic set to N unique samples "
+                             "(indices cycle): the overfit-training shape")
+    parser.add_argument("--overfit", action="store_true",
+                        help="validation set = the training set (same "
+                             "synthetic seed)")
+    parser.add_argument("--output_dir", type=str, default="./output")
+    parser.add_argument("--resume", type=str, default=None,
+                        help="checkpoint to resume from, or 'auto'/'latest'"
+                             " = the newest under {output_dir}/ckpts "
+                             "(starts fresh when there is none)")
+    parser.add_argument("--pretrained_torch", type=str, default=None,
+                        help="a checkpoint of the original Snipper repo")
+    parser.add_argument("--pretrained_backbone", type=str, default=None,
+                        help="a raw torchvision ResNet .pth; initializes "
+                             "only the backbone")
+    parser.add_argument("--steps_per_epoch", type=int, default=None)
+    parser.add_argument("--num_workers", type=int, default=2,
+                        help="threads rendering/decoding a batch's samples "
+                             "(0 = inline)")
+
+
+def build_dataset(cfg: Config, args, mode: str):
+    """The synthetic dataset for ``mode`` ("train" or "val")."""
+    from snipper_tpu_torch.data.synthetic import SyntheticDataset
+
+    n = args.synthetic_samples or (64 if mode == "train" else 8)
+    return SyntheticDataset(
+        cfg, n_samples=n, seed=0 if (mode == "train" or args.overfit) else 1,
+        distinct=args.synthetic_distinct)

@@ -41,7 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "{output_dir}/frames first")
     parser.add_argument("--output_dir", type=str, default="./demo_out")
     parser.add_argument("--resume", type=str, default=None,
-                        help="a torch.save'd state dict of this port")
+                        help="a checkpoint of this port's trainer "
+                             "(its 'params' are loaded)")
     parser.add_argument("--pretrained_torch", type=str, default=None,
                         help="a checkpoint of the original Snipper repo")
     parser.add_argument("--seq_gap", type=int, default=5)
@@ -90,8 +91,10 @@ def main(argv=None) -> dict:
         model.load_state_dict(
             load_reference_checkpoint(args.pretrained_torch, cfg))
     elif args.resume:
-        model.load_state_dict(torch.load(args.resume, map_location="cpu",
-                                         weights_only=True))
+        from snipper_tpu_torch.train.checkpoint import load_checkpoint
+
+        # the trainer's checkpoint, as the JAX CLI reads its "params"
+        model.load_state_dict(load_checkpoint(args.resume)["params"])
 
     frame_indices, all_files = snippet_index(args.data_dir, cfg.num_frames,
                                              args.seq_gap)

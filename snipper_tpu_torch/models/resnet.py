@@ -40,7 +40,10 @@ class FrozenBatchNorm(nn.Module):
     def forward(self, x):
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)
         shift = self.bias - self.running_mean * scale
-        return x * scale[:, None, None] + shift[:, None, None]
+        # in the activation's dtype: bf16 under autocast, as the JAX
+        # package casts every parameter in mixed precision
+        return (x * scale.to(x.dtype)[:, None, None]
+                + shift.to(x.dtype)[:, None, None])
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:

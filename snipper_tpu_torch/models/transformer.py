@@ -1,8 +1,12 @@
 """Temporal deformable transformer (encoder/decoder).
 
 Counterpart of ``snipper_tpu/models/transformer.py``, with the same module
-and parameter names. Inference only: dropout and rematerialization belong
-to the training slice.
+and parameter names. Dropout sits at the JAX modules' ``nn.Dropout`` sites
+(``transformer.py:169,205,211,214,242,253,259,262``) and is active only in
+``module.train()``. The JAX package rematerializes each layer
+(``nn.remat``) because its XLA sampling saves large one-hot intermediates;
+the port's sampling kernel saves only its three inputs, so nothing here is
+rematerialized.
 """
 
 from __future__ import annotations
@@ -97,9 +101,10 @@ class TorchMultiheadAttention(nn.Module):
     """Multi-head attention with torch's packed qkv parameters
     (``in_proj_weight [3C, C]``)."""
 
-    def __init__(self, d_model: int, n_heads: int):
+    def __init__(self, d_model: int, n_heads: int, dropout: float = 0.0):
         super().__init__()
         self.d_model, self.n_heads = d_model, n_heads
+        self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
         self.out_proj = tag(nn.Linear(d_model, d_model), "xavier")
@@ -117,14 +122,17 @@ class TorchMultiheadAttention(nn.Module):
         kh = F.linear(k, w[C:2 * C], b[C:2 * C]).reshape(*k.shape[:-1], H, D)
         vh = F.linear(v, w[2 * C:], b[2 * C:]).reshape(*v.shape[:-1], H, D)
         logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / math.sqrt(D)
-        probs = torch.softmax(logits, dim=-1)
+        probs = F.dropout(torch.softmax(logits, dim=-1), self.dropout,
+                          self.training)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, vh)
         return self.out_proj(out.reshape(*q.shape[:-1], C))
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points, n_frames):
+    def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points, n_frames,
+                 dropout=0.1):
         super().__init__()
+        self.dropout = dropout
         self.self_attn = TemporalDeformAttn(d_model, n_levels, n_heads,
                                             n_points, n_frames)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
@@ -134,17 +142,21 @@ class EncoderLayer(nn.Module):
 
     def forward(self, src, pos, reference_points, spatial_shapes,
                 padding_mask=None):
+        p, train = self.dropout, self.training
         src2, overflow = self.self_attn(src + pos, reference_points, src,
                                         spatial_shapes, padding_mask)
-        src = self.norm1(src + src2)
-        h = self.linear2(F.relu(self.linear1(src)))
-        return self.norm2(src + h), overflow
+        src = self.norm1(src + F.dropout(src2, p, train))
+        h = F.dropout(F.relu(self.linear1(src)), p, train)
+        h = self.linear2(h)
+        return self.norm2(src + F.dropout(h, p, train)), overflow
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points, n_frames):
+    def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points, n_frames,
+                 dropout=0.1):
         super().__init__()
-        self.self_attn = TorchMultiheadAttention(d_model, n_heads)
+        self.dropout = dropout
+        self.self_attn = TorchMultiheadAttention(d_model, n_heads, dropout)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.cross_attn = TemporalDeformAttn(d_model, n_levels, n_heads,
                                              n_points, n_frames)
@@ -156,23 +168,25 @@ class DecoderLayer(nn.Module):
     def forward(self, tgt, query_pos, reference_points, src, spatial_shapes,
                 src_padding_mask=None, return_attn=False):
         B, T1, Lq, C = tgt.shape
+        p, train = self.dropout, self.training
         # self-attention over all T1*Lq tokens: q = k = tgt + pos, v = tgt;
         # norm2 follows it (transformer.py:236-243)
         t2d = tgt.reshape(B, T1 * Lq, C)
         qk = t2d + query_pos.reshape(B, T1 * Lq, C)
-        t2d = t2d + self.self_attn(qk, qk, t2d)
+        t2d = t2d + F.dropout(self.self_attn(qk, qk, t2d), p, train)
         tgt = self.norm2(t2d).reshape(B, T1, Lq, C)
 
         # temporal deformable cross-attention, then norm1 (:247-254)
         res = self.cross_attn(tgt + query_pos, reference_points, src,
                               spatial_shapes, src_padding_mask,
                               return_attn=return_attn)
-        tgt = self.norm1(tgt + res[0])
+        tgt = self.norm1(tgt + F.dropout(res[0], p, train))
 
         # ffn, then norm3 (:257-263)
-        h = self.linear2(F.relu(self.linear1(tgt)))
+        h = F.dropout(F.relu(self.linear1(tgt)), p, train)
+        h = self.linear2(h)
         attn_data = res[2] if return_attn else None
-        return self.norm3(tgt + h), attn_data
+        return self.norm3(tgt + F.dropout(h, p, train)), attn_data
 
 
 def encoder_reference_points(
@@ -200,7 +214,7 @@ class DeformableTransformer(nn.Module):
     def __init__(self, d_model, n_heads, num_encoder_layers,
                  num_decoder_layers, dim_feedforward, num_feature_levels,
                  enc_n_points, dec_n_points, n_frames, n_future_frames,
-                 num_keypoints):
+                 num_keypoints, dropout=0.1):
         super().__init__()
         self.d_model, self.n_heads = d_model, n_heads
         self.num_feature_levels = num_feature_levels
@@ -212,10 +226,12 @@ class DeformableTransformer(nn.Module):
         self.temporal_embed = nn.Parameter(torch.empty(t_total, d_model))
         for i in range(num_encoder_layers):
             setattr(self, f"encoder_layer{i}", EncoderLayer(
-                d_model, dim_feedforward, L, n_heads, enc_n_points, n_frames))
+                d_model, dim_feedforward, L, n_heads, enc_n_points, n_frames,
+                dropout))
         for i in range(num_decoder_layers):
             setattr(self, f"decoder_layer{i}", DecoderLayer(
-                d_model, dim_feedforward, L, n_heads, dec_n_points, n_frames))
+                d_model, dim_feedforward, L, n_heads, dec_n_points, n_frames,
+                dropout))
         self.num_encoder_layers = num_encoder_layers
         self.num_decoder_layers = num_decoder_layers
         self.reference_points = tag(nn.Linear(d_model, 2), "xavier")

@@ -1,2 +1,3 @@
 """Deformable-attention sampling: the plain PyTorch version and the Hopper
-kernel ``msda_forward`` behind one wrapper that chooses by device."""
+kernels ``msda_forward`` and ``msda_backward`` behind one differentiable
+wrapper that chooses by device."""

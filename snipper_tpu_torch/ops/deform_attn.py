@@ -67,11 +67,18 @@ def temporal_deform_sample(
 
     Returns ``(out [B, T1, Lq, H*D], overflow)``. ``overflow`` is always 0:
     the sampling is an exact gather with no window that could drop taps.
+
+    Gradients flow to all three inputs, through the softmax, the division
+    by the frame count and the neighbour-frame sum. The softmax, the
+    locations and the weights are f32 whatever the activation dtype (under
+    autocast too): the kernels take only f32 ``loc``/``attn``; ``value``
+    keeps its dtype (f32, or bf16 under autocast).
     """
     B, T1, Lq, nH, L, P = attention_logits.shape
     _, T2, S, _, D = value.shape
 
-    attn = torch.softmax(attention_logits.reshape(B, T1, Lq, nH, L * P), -1)
+    attn = torch.softmax(
+        attention_logits.float().reshape(B, T1, Lq, nH, L * P), -1)
     counts = np.asarray(adjacency).sum(axis=1)            # [T1] static
     attn = attn / device_constant(counts, attn)[None, :, None, None, None]
     attn = attn.reshape(B, T1, Lq, nH, L, P)
@@ -85,6 +92,7 @@ def temporal_deform_sample(
     # fold T1 into the batch for one sampling call
     out = ms_deform_attn(
         v_agg.reshape(B * T1, S, nH, D), spatial_shapes,
-        sampling_locations.reshape(B * T1, Lq, nH, L, P, 2).contiguous(),
+        sampling_locations.float().reshape(B * T1, Lq, nH, L, P, 2)
+        .contiguous(),
         attn.reshape(B * T1, Lq, nH, L, P).contiguous())
     return out.reshape(B, T1, Lq, nH * D), 0

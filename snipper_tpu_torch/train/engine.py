@@ -1,0 +1,154 @@
+"""Train / eval epoch loops.
+
+Counterpart of ``snipper_tpu/train/engine.py:28-176,205-304`` (reference
+``engine.py``): ``train_one_epoch`` runs a step per batch, reads the
+step's scalars with one host copy and aborts on a non-finite loss
+(reference ``engine.py:68-71``); ``evaluate`` runs forward + criterion per
+batch, the PostProcess and the 3D metrics over the current and the future
+frames (reference ``engine.py:99-212``): MPJPE root/joint, pelvis-aligned
+MPJPE and 3DPCK_rel @ 0.15 m, and PCKh on PoseTrack-style samples.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from snipper_tpu_torch.config import Config
+from snipper_tpu_torch.eval.metrics import eval_kpts2d_pckh, eval_pose3d
+from snipper_tpu_torch.infer.postprocess import postprocess
+from snipper_tpu_torch.train.step import batch_to_device, eval_step, \
+    train_step
+from snipper_tpu_torch.utils.logger import MetricLogger
+
+POSE3D_KEYS = ("mpjpe_root", "mpjpe_joint", "pel_mpjpe_joint", "3dpck")
+PCKH_KEYS = ("pckh_root", "pckh_joint")
+
+
+def inject_window_num_traj(batches, k: int):
+    """Attach each accumulation window's loss normalizer.
+
+    The reference normalizes every trajectory loss by ``num_traj``
+    all-reduced across its k DDP ranks (``models/model.py:521-526``): each
+    rank divides by ``max(N_global / k, 1)``. With gradient accumulation
+    standing in for the k ranks, the normalizer spans the window's k
+    microbatches; it is a function of the targets alone, so it is computed
+    from a k-batch lookahead and attached as ``batch["num_traj"]``. A
+    trailing partial window of j < k batches normalizes over its own j."""
+    buf = []
+
+    def flush():
+        total = sum(float(np.sum(np.asarray(b["targets"]["valid"],
+                                            dtype=np.float32)))
+                    for b in buf)
+        norm = np.float32(max(total / len(buf), 1.0))
+        for b in buf:
+            yield dict(b, num_traj=norm)
+        buf.clear()
+
+    for b in batches:
+        buf.append(b)
+        if len(buf) == k:
+            yield from flush()
+    if buf:
+        yield from flush()
+
+
+def _read_scalars(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """All of a step's 0-d metrics in one device-to-host copy."""
+    keys = list(metrics)
+    vals = torch.stack([metrics[k].float() for k in keys]).cpu().tolist()
+    return dict(zip(keys, vals))
+
+
+def train_one_epoch(state, criterion, loader, epoch: int,
+                    generator: torch.Generator, device: torch.device,
+                    mixed_precision: bool = True, print_freq: int = 10,
+                    stop_flag: Optional[Callable[[], bool]] = None,
+                    max_steps: Optional[int] = None,
+                    grad_accum_steps: int = 1):
+    """``max_steps``: stop the epoch after N steps. Returns ``(stats,
+    history)``: the epoch's mean of each metric and, per step, its metrics
+    and its host time in seconds (the step ends with the metrics read, so
+    the card has finished it)."""
+    logger = MetricLogger()
+    history: List[Dict[str, float]] = []
+    iterable = iter(loader)
+    if grad_accum_steps > 1:
+        iterable = inject_window_num_traj(iterable, grad_accum_steps)
+    for i, batch in enumerate(logger.log_every(iterable, print_freq,
+                                               f"Epoch: [{epoch}]")):
+        if max_steps is not None and i >= max_steps:
+            break
+        if stop_flag is not None and stop_flag():
+            print("preemption signal received — stopping epoch early",
+                  flush=True)
+            break
+        t0 = time.perf_counter()
+        metrics = _read_scalars(train_step(
+            state, criterion, batch_to_device(batch, device), generator,
+            mixed_precision=mixed_precision))
+        history.append(dict(metrics, seconds=time.perf_counter() - t0))
+        loss = metrics["loss_total"]
+        if not np.isfinite(loss):
+            print(f"Loss is {loss}, stopping training", flush=True)
+            print(metrics, flush=True)
+            sys.exit(1)
+        logger.update(**metrics)
+        logger.update(lr=state.lr_fns[-1](state.updates))
+    print("Averaged stats:", logger, flush=True)
+    return {k: m.global_avg for k, m in logger.meters.items()}, history
+
+
+def evaluate(model, criterion, loader, cfg: Config, device: torch.device,
+             print_freq: int = 10) -> Dict:
+    """Losses and 3D/2D pose metrics over ``loader``; ``_batches`` counts
+    the batches."""
+    logger = MetricLogger()
+    T, Tf = cfg.num_frames, cfg.num_future_frames
+    pose3d = {k: [] for k in POSE3D_KEYS}
+    pose3d_future = {k: [] for k in POSE3D_KEYS}
+    pckh = {k: [] for k in PCKH_KEYS}
+    n_batches = 0
+    for batch in logger.log_every(loader, print_freq, "Eval:"):
+        n_batches += 1
+        outputs, losses, src_idx = eval_step(
+            model, criterion, batch_to_device(batch, device))
+        logger.update(**_read_scalars(losses))
+        outputs_np = {k: outputs[k].float().cpu().numpy()
+                      for k in ("pred_logits", "pred_kpts2d", "pred_depth")}
+        results = postprocess(outputs_np, batch["meta"],
+                              src_idx.cpu().numpy())
+        # 2D PCKh on posetrack-style samples (reference
+        # eval_utils.py:96-175; observed frames only)
+        for key in PCKH_KEYS:
+            v = eval_kpts2d_pckh(key, results, 0, T)
+            if v is not None and v.size:
+                pckh[key].append(v)
+        for key in POSE3D_KEYS:
+            mkey = "pel_mpjpe_joint" if key == "3dpck" else key
+            cur = eval_pose3d(mkey, results, 0, T)
+            pose3d[key].append((cur < 0.15).astype(np.float32)
+                               if key == "3dpck" else cur)
+            if Tf > 0:
+                fut = eval_pose3d(mkey, results, T, T + Tf)
+                pose3d_future[key].append(
+                    (fut < 0.15).astype(np.float32) if key == "3dpck"
+                    else fut)
+
+    stats = {k: m.global_avg for k, m in logger.meters.items()}
+    for name, acc in (("", pose3d), ("future_", pose3d_future), ("", pckh)):
+        for k, chunks in acc.items():
+            if not chunks:
+                continue
+            v = np.concatenate(chunks)
+            if v.size:
+                stats[f"{name}{k}"] = float(v.mean())
+    print("Eval stats:", {k: round(v, 4) for k, v in stats.items()
+                          if not k.startswith("loss")}, flush=True)
+    stats["_batches"] = n_batches
+    return stats

@@ -52,6 +52,9 @@ def test_port_imports_no_jax_module():
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "snipper_tpu_torch.cli.infer" in res["imported"]
     assert "snipper_tpu_torch.ops.msda" in res["imported"]
+    for name in ("cli.train", "train.step", "train.engine", "losses.criterion",
+                 "matching.matcher", "data.loader", "eval.metrics"):
+        assert f"snipper_tpu_torch.{name}" in res["imported"], name
     leaked = [m for m in res["modules"]
               if m.split(".")[0] in FORBIDDEN]
     assert not leaked, leaked
