@@ -28,12 +28,25 @@ result):
    launches per step, the checkpoint and finite losses.
 6. Hold one f32 train step (dropout 0) with the kernels against the same
    step with the plain MSDA forward and VJP on the card, TF32 off.
-7. Print one JSON line of kernel numbers, then the card's name and power
+7. Hold the sampling probes' kernels against their plain versions on the
+   card, TF32 off, at a tiny shape and at the JAX probe's full shapes:
+   ``win2d_sample`` against the plain windowed2d (f32 and bf16 value at
+   the encoder fixture, and a teleported tap, with equal overflow counts),
+   ``win2d_contract`` and ``hier_gather`` at the four kernel-only
+   fixtures, ``chain_gather`` and ``chain_select`` bitwise; time each
+   kernel alone beside its plain version and its bound.
+8. Drive the probe path: ``snipper_tpu_torch.scripts.probe op`` (all six
+   impls) and ``probe lanegather`` through ``main``, counts set to 0 just
+   before each and read just after; check the exit code, that no line
+   says FAIL, and the ``windowed2d_pallas`` line's overflow and error.
+9. Print one JSON line of kernel numbers, then the card's name and power
    limit, then, as the last line, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -69,6 +82,18 @@ TOL_BWD_REL = 1e-5
 TOL_FORWARD = 1e-3
 # Tiny model: CUDA (kernel) vs CPU (plain), TF32 off.
 TOL_TINY_MODEL = 1e-4
+# Kernels against plain versions that round one f32 sum once to bf16, in
+# another order: one bf16 unit (2^-7 of a value's magnitude) of the
+# largest output.
+BF16_UNIT = 2.0 ** -7
+# The probe's relerr of the bf16 windowed2d_pallas line against core: one
+# bf16 unit of the largest output, plus f32 roundoff.
+TOL_PROBE_RELERR = 8e-3
+# The lane chains: bitwise (+1 and x + x round the same everywhere).
+# win2d_contract and hier_gather: 1e-5 of the output's largest value (the
+# JAX probe's bar).
+TOL_CONTRACT_REL = 1e-5
+PROBE_OP_IMPLS = "windowed,windowed2d,windowed2d_pallas,pmerged,pallas,core"
 
 
 def check(cond, msg):
@@ -327,6 +352,297 @@ def phase_backward():
         del value, loc, attn, grad_out
     torch.cuda.empty_cache()
     return res
+
+
+# ------------------------------------------------- the sampling probes' kernels
+def _bound(nbytes, ops):
+    """(ms, "bytes" or "operations") of the least time for ``nbytes`` over
+    the HBM rate and ``ops`` over the f32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def win2d_bound_ms(value, shapes, taps_list):
+    """Least time for ``win2d_sample`` over a whole op call: each
+    segment's ids, weights and anchors read once, the distinct value rows
+    that live taps touch read once, the output written once; 2 flops per
+    live tap and channel. Returns (ms, by, bytes, ops)."""
+    import torch
+
+    from snipper_tpu_torch.ops.win2d import window_rows
+
+    B, S, H, D = value.shape
+    rows, nbytes, live_taps = [], 0, 0
+    for taps in taps_list:
+        nbytes += sum(t.numel() * 4 for t in taps.ids + taps.wgts)
+        nbytes += taps.anchors.numel() * 4
+        for lvl in range(len(shapes)):
+            r, in_win = window_rows(value.shape, shapes, taps, lvl)
+            live = in_win & (taps.wgts[lvl] != 0)
+            rows.append(r[live])
+            live_taps += int(live.sum())
+        hs, ws = taps.seg_shape
+        nbytes += B * hs * ws * H * D * value.element_size()
+    n_rows = torch.unique(torch.cat(rows)).numel()
+    nbytes += n_rows * D * value.element_size()
+    ops = 2 * D * live_taps
+    return (*_bound(nbytes, ops), nbytes, ops)
+
+
+def contract_bound_ms(ids, wgts, D, io_bytes):
+    """Least time for ``win2d_contract`` or ``hier_gather`` on one fixture:
+    the distinct window rows (D f32 channels each) that live taps touch,
+    read once, plus ``io_bytes`` (ids and weights as the kernel takes them,
+    and its output); 2 flops per live tap and channel. ``ids``/``wgts``
+    per level in K5's layout [NB, BH, C, K]. Returns (ms, by, bytes,
+    ops)."""
+    import torch
+
+    touched, live_taps = 0, 0
+    for i, g in zip(ids, wgts):
+        NB, BH = i.shape[:2]
+        blk = torch.arange(NB * BH, device=i.device).view(NB, BH, 1, 1)
+        live = g != 0
+        touched += torch.unique((blk * (1 << 20) + i)[live]).numel()
+        live_taps += int(live.sum())
+    nbytes = touched * D * 4 + io_bytes
+    ops = 2 * D * live_taps
+    return (*_bound(nbytes, ops), nbytes, ops)
+
+
+def phase_windowed_kernels():
+    """win2d_sample against the plain windowed2d (tiny grid fixture, the
+    probe's encoder fixture with a bf16 and an f32 value, and a teleported
+    tap), win2d_contract and hier_gather against the gather-and-sum of
+    their definition at the four probe_hier fixtures, chain_gather and
+    chain_select bitwise at the probe's 64 x [512, 128], n = 64."""
+    import torch
+
+    from snipper_tpu_torch.ops import lane_chain, win2d
+    from snipper_tpu_torch.ops.deform_attn import (ms_deform_attn_windowed2d,
+                                                   windowed2d_plan)
+    from snipper_tpu_torch.scripts import lanegather_probe, probe
+
+    set_tf32(False)
+    res = {"win2d_sample": {}, "win2d_contract": {}, "hier_gather": {},
+           "chain_gather": {}, "chain_select": {}}
+
+    # ---- K2: the kernel path vs the plain windowed2d ---------------------
+    tiny_shapes = [(24, 32), (12, 16), (6, 8)]
+    tiny = msda_inputs(2, tiny_shapes, 2, 8, sum(h * w for h, w in
+                                                 tiny_shapes), 2, True,
+                       seed=30, off_px=3.9)
+    enc_value, enc_shapes, enc_loc, enc_attn = probe.encoder_inputs(
+        max_off_px=4.0, device="cuda")
+    teleported = enc_loc.clone()
+    teleported[0, 5, 0, 0, 0] = torch.tensor([0.97, 0.97])
+    cases = [
+        ("tiny", tiny[0], tiny_shapes, tiny[1], tiny[2], (6, 8)),
+        ("encoder_bf16", enc_value, enc_shapes, enc_loc, enc_attn, (8, 20)),
+        ("encoder_f32", enc_value.float(), enc_shapes, enc_loc, enc_attn,
+         (8, 20)),
+        ("encoder_teleported_tap", enc_value.float(), enc_shapes, teleported,
+         enc_attn, (8, 20)),
+    ]
+    for name, value, shapes, loc, attn, block in cases:
+        segs = [h * w for h, w in shapes]
+        kw = dict(block_h=block[0], block_w=block[1], margin_px=5)
+        got, got_ov = win2d.ms_deform_attn_windowed2d_kernel(
+            value, shapes, loc, attn, segs, **kw)
+        want, want_ov = ms_deform_attn_windowed2d(value, shapes, loc, attn,
+                                                  segs, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        scale = max(1.0, want.float().abs().max().item())
+        bf16 = value.dtype == torch.bfloat16
+        tol = BF16_UNIT * scale if bf16 else TOL_F32
+        check(got.dtype == value.dtype and math.isfinite(err) and err <= tol,
+              f"win2d_sample {name}: max abs diff {err} > {tol}")
+        check(float(got_ov) == float(want_ov),
+              f"win2d_sample {name}: overflow {float(got_ov)} vs plain "
+              f"{float(want_ov)}")
+        check((float(got_ov) > 0) == (name == "encoder_teleported_tap"),
+              f"win2d_sample {name}: overflow {float(got_ov)}")
+        row = dict(dtype=str(value.dtype).replace("torch.", ""),
+                   max_abs_err=err, tol=tol, overflow=float(got_ov),
+                   plain_overflow=float(want_ov))
+        if name.startswith("encoder_") and "teleported" not in name:
+            blocks, wins = windowed2d_plan(shapes, *block, 5)
+            taps, q0 = [], 0
+            for si, seg in enumerate(segs):
+                taps.append(win2d.segment_taps(
+                    shapes, loc[:, q0:q0 + seg], attn[:, q0:q0 + seg],
+                    shapes[si], blocks[si], wins[si]))
+                q0 += seg
+            row["ms"] = time_ms(lambda: [win2d.win2d_sample_cuda(
+                value, shapes, t) for t in taps])
+            row["op_call_ms"] = time_ms(
+                lambda: win2d.ms_deform_attn_windowed2d_kernel(
+                    value, shapes, loc, attn, segs, **kw))
+            row["plain_ms"] = time_ms(
+                lambda: ms_deform_attn_windowed2d(value, shapes, loc, attn,
+                                                  segs, **kw), reps=10)
+            (row["bound_ms"], row["bound_by"], row["bytes"],
+             row["ops"]) = win2d_bound_ms(value, shapes, taps)
+            row["launches_per_op_call"] = len(taps)
+            del taps
+        res["win2d_sample"][name] = row
+        log(f"win2d_sample {name}: max|diff| {err:.3e} (tol {tol:.3g}), "
+            f"overflow {float(got_ov)} (plain {float(want_ov)})"
+            + (f"; kernel {row['ms']:.4f} ms per op call (3 launches), "
+               f"taps + kernel {row['op_call_ms']:.4f} ms, plain windowed2d"
+               f" {row['plain_ms']:.4f} ms; bound "
+               f"{row['bound_ms'] * 1e3:.2f} us by {row['bound_by']} "
+               f"({row['bytes'] / 1e6:.1f} MB, {row['ops'] / 1e9:.3f} "
+               f"GFLOP); no single PyTorch call computes a windowed "
+               f"gather-contraction (library_ms null)" if "ms" in row
+               else ""))
+        del got, want
+    del enc_value, enc_loc, enc_attn, teleported, cases
+    torch.cuda.empty_cache()
+
+    # ---- K5 and K4 at the four probe_hier fixtures -----------------------
+    for NB, C, widths in lanegather_probe.HIER_FIXTURES:
+        wins, winsT, ids, idsT, wgts, wgtsT, Cp = lanegather_probe._fixture(
+            NB, C, widths, device="cuda")
+        D = wins[0].shape[-1]
+        label = f"NB={NB} C={C} widths={widths}"
+        for name, fn, plain, args, out_shape in (
+                ("win2d_contract", win2d.win2d_contract_cuda,
+                 win2d.win2d_contract_torch, (wins, ids, wgts),
+                 (NB, 32, C, D)),
+                ("hier_gather", win2d.hier_gather_cuda,
+                 win2d.hier_gather_torch, (winsT, idsT, wgtsT),
+                 (NB, 32, D, Cp))):
+            got = fn(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tol = TOL_CONTRACT_REL * want.abs().max().item()
+            check(tuple(got.shape) == out_shape and math.isfinite(err)
+                  and err <= tol,
+                  f"{name} {label}: max abs diff {err} > {tol}")
+            io_bytes = sum(t.numel() * 4 for t in args[1] + args[2]) \
+                + got.numel() * 4
+            bound, by, nbytes, ops = contract_bound_ms(ids, wgts, D,
+                                                       io_bytes)
+            row = dict(max_abs_err=err, tol=tol, ms=time_ms(lambda: fn(*args)),
+                       plain_ms=time_ms(lambda: plain(*args), reps=10),
+                       bound_ms=bound, bound_by=by, bytes=nbytes, ops=ops)
+            res[name][label] = row
+            log(f"{name} {label}: max|diff| {err:.3e} (tol {tol:.3g}); "
+                f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms;"
+                f" bound {bound * 1e3:.2f} us by {by} ({nbytes / 1e6:.1f} "
+                f"MB, {ops / 1e9:.3f} GFLOP); no single PyTorch call "
+                f"computes a windowed gather-contraction (library_ms null)")
+            del got, want
+        del wins, winsT, ids, idsT, wgts, wgtsT
+        torch.cuda.empty_cache()
+
+    # ---- K3 at the probe's 64 x [512, 128], n = 64 -----------------------
+    g = torch.Generator(device="cuda").manual_seed(40)
+    x = torch.randn(64, 512, 128, device="cuda", generator=g)
+    idx = torch.randint(0, 128, (64, 512, 128), device="cuda", generator=g,
+                        dtype=torch.int32)
+    n = 64
+    for name, fn, plain, ops_per_elem in (
+            ("chain_gather", lane_chain.chain_gather_cuda,
+             lane_chain.chain_gather_torch, 1),
+            ("chain_select", lane_chain.chain_select_cuda,
+             lane_chain.chain_select_torch, 3)):
+        got = fn(x, idx, n)
+        want = plain(x, idx, n)
+        check(torch.equal(got, want), f"{name}: not bitwise equal to the "
+              f"plain chain (max |diff| "
+              f"{(got - want).abs().max().item()})")
+        nbytes = 3 * x.numel() * 4
+        ops = ops_per_elem * n * x.numel()
+        bound, by = _bound(nbytes, ops)
+        row = dict(max_abs_err=0.0, tol=0.0, ms=time_ms(lambda: fn(x, idx, n)),
+                   plain_ms=time_ms(lambda: plain(x, idx, n)),
+                   bound_ms=bound, bound_by=by, bytes=nbytes, ops=ops,
+                   ns_per_elem=None)
+        row["ns_per_elem"] = row["ms"] * 1e6 / (x.numel() * n)
+        res[name]["64x[512,128] n=64"] = row
+        log(f"{name} 64x[512,128] n={n}: bitwise equal to the plain chain; "
+            f"kernel {row['ms']:.4f} ms ({row['ns_per_elem']:.5f} ns/elem), "
+            f"plain {row['plain_ms']:.4f} ms; bound {bound * 1e3:.2f} us by "
+            f"{by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G ops); no single"
+            f" PyTorch call computes a chained in-row gather (library_ms "
+            f"null)")
+    del x, idx
+    torch.cuda.empty_cache()
+    return res
+
+
+def _run_probe(argv):
+    """``snipper_tpu_torch.scripts.probe.main(argv)`` with its output
+    captured (and logged); returns (exit code, output)."""
+    from snipper_tpu_torch.scripts import probe
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = probe.main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  | {line}")
+    return rc, out
+
+
+def phase_probes():
+    """The probe path: ``probe op`` over all six impls and ``probe
+    lanegather``, each with the counts of the kernels it runs set to 0
+    just before and read just after."""
+    from snipper_tpu_torch.ops import lane_chain, win2d
+    from snipper_tpu_torch.ops.msda import ms_deform_attn
+
+    log("probe op (python -m snipper_tpu_torch.scripts.probe op --impls "
+        f"{PROBE_OP_IMPLS}):")
+    # ---- the op sweep, with its kernels' counts at 0 ---------------------
+    win2d.win2d_sample.launches = 0
+    ms_deform_attn.launches = 0
+    rc, out = _run_probe(["op", "--impls", PROBE_OP_IMPLS, "--device",
+                          "cuda"])
+    op_launches = {"win2d_sample": win2d.win2d_sample.launches,
+                   "msda_forward": ms_deform_attn.launches}
+    # ----------------------------------------------------------------------
+    check(rc == 0 and "FAIL" not in out and out.rstrip().endswith("DONE"),
+          f"probe op exited {rc} or printed FAIL")
+    lines = {ln.split(":")[0].split()[0]: ln for ln in out.splitlines()
+             if "ms/op-call" in ln}
+    check(sorted(lines) == sorted(PROBE_OP_IMPLS.split(",")),
+          f"probe op printed lines for {sorted(lines)}")
+    k2 = lines["windowed2d_pallas"]
+    relerr = float(k2.split("relerr ")[1].split()[0])
+    check("overflow=0.0" in k2 and relerr <= TOL_PROBE_RELERR,
+          f"windowed2d_pallas line: {k2}")
+    op_ms = {impl: float(ln.split(":")[1].split()[0])
+             for impl, ln in lines.items()}
+
+    log("probe lanegather (python -m snipper_tpu_torch.scripts.probe "
+        "lanegather):")
+    # ---- the lane-gather probe, with its kernels' counts at 0 ------------
+    for fn in (lane_chain.chain_gather, lane_chain.chain_select,
+               win2d.hier_gather, win2d.win2d_contract):
+        fn.launches = 0
+    rc2, out2 = _run_probe(["lanegather", "--device", "cuda"])
+    lg_launches = {"chain_gather": lane_chain.chain_gather.launches,
+                   "chain_select": lane_chain.chain_select.launches,
+                   "hier_gather": win2d.hier_gather.launches,
+                   "win2d_contract": win2d.win2d_contract.launches}
+    # ----------------------------------------------------------------------
+    check(rc2 == 0 and "FAIL" not in out2 and out2.rstrip().endswith("DONE"),
+          f"probe lanegather exited {rc2} or printed FAIL")
+    launches = {**op_launches, **lg_launches}
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the probe path was not launched: {launches}")
+    log(f"probe path: exit codes {rc}, {rc2}; launches {launches}")
+    return dict(launches=launches, op_ms=op_ms, relerr=relerr,
+                op_lines=list(lines.values()),
+                lanegather_lines=[ln for ln in out2.splitlines()
+                                  if ln.startswith("  ")])
+
 
 
 # ------------------------------------------------------------- main path
@@ -743,7 +1059,7 @@ def main() -> int:
     # 2. build
     from snipper_tpu_torch.ops import _build
 
-    sources = ("msda_forward", "msda_backward")
+    sources = ("msda_forward", "msda_backward", "win2d", "lane_chain")
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(
             lambda s: _build.build(f"{s}.cu", f"lib{s}.so"), sources))
@@ -756,6 +1072,7 @@ def main() -> int:
     # 3. kernels against their plain versions
     shapes_res = phase_kernels()
     bwd_res = phase_backward()
+    win_res = phase_windowed_kernels()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         # 4. the inference path
@@ -764,6 +1081,8 @@ def main() -> int:
         train_res = phase_train(work)
     # 6. a train step, kernels against the plain MSDA
     agree_res = phase_train_agreement()
+    # 8. the probe path
+    probe_res = phase_probes()
 
     enc = shapes_res["encoder"]
     benc = bwd_res["train_encoder"]
@@ -801,12 +1120,56 @@ def main() -> int:
         "per_train_step_launches": train_res["per_step"],
         "shapes": bwd_res,
     }]
+    k2 = win_res["win2d_sample"]
+    kernels.append({
+        "name": "win2d_sample",
+        "route": "cuda",
+        "source": "snipper_tpu_torch/ops/csrc/win2d.cu",
+        "replaces": "snipper_tpu/ops/pallas_deform.py:186",
+        "launches": probe_res["launches"]["win2d_sample"],
+        "max_abs_err": max(r["max_abs_err"] for r in k2.values()
+                           if r["dtype"] == "float32"),
+        "ms": k2["encoder_bf16"]["ms"],
+        "plain_ms": k2["encoder_bf16"]["plain_ms"],
+        "bound_ms": k2["encoder_bf16"]["bound_ms"],
+        "bound_by": k2["encoder_bf16"]["bound_by"],
+        "library_ms": None,
+        "at": "probe op encoder fixture, bf16 value, per op call (3 "
+              "launches, one per query segment): B=4 S=9875 H=8 D=48 L=3 "
+              "P=4, block 8x20, margin 5",
+        "shapes": k2,
+    })
+    for name, replaces in (("win2d_contract", "scripts/lanegather_probe.py:217"),
+                           ("hier_gather", "scripts/lanegather_probe.py:164"),
+                           ("chain_gather", "scripts/lanegather_probe.py:69"),
+                           ("chain_select", "scripts/lanegather_probe.py:78")):
+        rows = win_res[name]
+        head = rows[list(rows)[-1]]  # the full op-call scale fixture
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "snipper_tpu_torch/ops/csrc/"
+                      + ("lane_chain.cu" if name.startswith("chain")
+                         else "win2d.cu"),
+            "replaces": replaces,
+            "launches": probe_res["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            "ms": head["ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": None,
+            "at": list(rows)[-1],
+            "shapes": rows,
+        })
     log(f"card: {card}; inference path "
         f"{main_res['steady_snippets_per_s']:.3f} snippets/s; training "
         f"path {train_res['step_ms']:.2f} ms/step, "
         f"{train_res['samples_per_s']:.3f} samples/s, peak "
         f"{train_res['peak_gb']:.2f} GB; train step kernels vs plain: "
         f"gradients within {agree_res['grad_worst_rel']:.3e} of scale; "
+        f"probe op windowed2d_pallas {probe_res['op_ms']['windowed2d_pallas']}"
+        f" ms/op-call (relerr {probe_res['relerr']:.2e}); "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,5 +1,6 @@
-"""The CUDA kernels ``msda_forward`` and ``msda_backward`` against their
-plain PyTorch versions, on a CUDA card. Without one, every test here skips
+"""The CUDA kernels ``msda_forward``, ``msda_backward``, ``win2d_sample``,
+``win2d_contract``, ``hier_gather``, ``chain_gather`` and ``chain_select``
+against their plain PyTorch versions, on a CUDA card. Without one, every test here skips
 (the kernels have no CPU mode).
 
 This file imports nothing of JAX, so it also runs on a GPU host without
@@ -14,9 +15,13 @@ import torch
 
 from snipper_tpu_torch.config import Config
 from snipper_tpu_torch.models.snipper import build_model
+from snipper_tpu_torch.ops import lane_chain, win2d
+from snipper_tpu_torch.ops.deform_attn import (ms_deform_attn_windowed2d,
+                                               windowed2d_plan)
 from snipper_tpu_torch.ops.msda import (ms_deform_attn, ms_deform_attn_torch,
                                         ms_deform_attn_torch_vjp,
                                         msda_backward, msda_forward)
+from snipper_tpu_torch.scripts.lanegather_probe import _fixture
 
 SHAPES = [(6, 9), (3, 5), (2, 2)]
 CANONICAL = [(75, 100), (38, 50), (19, 25)]   # 600x800 at strides 8/16/32
@@ -185,3 +190,117 @@ def test_tiny_train_step_cuda_matches_cpu(cuda):
         torch.testing.assert_close(res["cuda"][1][k], v, rtol=1e-4,
                                    atol=1e-5, msg=k)
 
+
+
+# ------------------------------------------- windowed sampling and the probe
+GRID_SHAPES = [(24, 32), (12, 16), (6, 8)]
+GRID_SIZES = [h * w for h, w in GRID_SHAPES]
+
+
+def _grid_inputs(device, value_dtype, teleport=False, B=2, NH=2, D=8, P=2):
+    """Encoder-style grid queries with offsets of up to 3.9 pixels;
+    ``teleport`` moves one tap outside its window."""
+    rng = np.random.default_rng(11)
+    S = sum(GRID_SIZES)
+    L = len(GRID_SHAPES)
+    refs = []
+    for (h, w) in GRID_SHAPES:
+        gy, gx = np.meshgrid((np.arange(h) + 0.5) / h,
+                             (np.arange(w) + 0.5) / w, indexing="ij")
+        refs.append(np.stack([gx.ravel(), gy.ravel()], -1))
+    off = rng.uniform(-3.9, 3.9, (B, S, NH, L, P, 2))
+    norm = np.array([(w, h) for h, w in GRID_SHAPES], np.float64)
+    loc = (np.concatenate(refs, 0)[None, :, None, None, None, :]
+           + off / norm[None, None, None, :, None, :]).astype(np.float32)
+    if teleport:
+        loc[1, 5, 1, 0, 0] = [0.97, 0.97]
+    v = rng.standard_normal((B, S, NH, D)).astype(np.float32)
+    w = rng.uniform(0, 1, (B, S, NH, L, P)).astype(np.float32)
+    return (torch.from_numpy(v).to(device, value_dtype),
+            torch.from_numpy(loc).to(device), torch.from_numpy(w).to(device))
+
+
+@pytest.mark.parametrize("teleport", [False, True], ids=["inside", "teleport"])
+@pytest.mark.parametrize("value_dtype", [torch.float32, torch.bfloat16])
+def test_win2d_sample_matches_plain(cuda, value_dtype, teleport):
+    """The windowed2d kernel path (one launch per query segment) against
+    the plain windowed2d: f32 within 1e-5; a bf16 value within one bf16
+    unit of the largest output (both round one f32 sum once); the same
+    overflow count, > 0 for the teleported tap."""
+    value, loc, attn = _grid_inputs(cuda, value_dtype, teleport)
+    kw = dict(block_h=6, block_w=8, margin_px=5)
+    before = win2d.win2d_sample.launches
+    got, got_ov = win2d.ms_deform_attn_windowed2d_kernel(
+        value, GRID_SHAPES, loc, attn, GRID_SIZES, **kw)
+    assert win2d.win2d_sample.launches == before + len(GRID_SHAPES)
+    want, want_ov = ms_deform_attn_windowed2d(value, GRID_SHAPES, loc, attn,
+                                              GRID_SIZES, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == value_dtype
+    assert float(got_ov) == float(want_ov)
+    assert (float(got_ov) > 0) == teleport
+    scale = max(1.0, want.float().abs().max().item())
+    tol = 1e-5 if value_dtype == torch.float32 else 2.0 ** -7 * scale
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_win2d_contract_and_hier_gather_match_plain(cuda):
+    """Both contractions against the gather-and-sum of their definition,
+    within 1e-5 of the output's largest value."""
+    wins, winsT, ids, idsT, wgts, wgtsT, _ = _fixture(
+        3, 70, (256, 128, 384), BH=4, D=16, device=cuda)
+    before = (win2d.win2d_contract.launches, win2d.hier_gather.launches)
+    got5 = win2d.win2d_contract(wins, ids, wgts)
+    got4 = win2d.hier_gather(winsT, idsT, wgtsT)
+    assert (win2d.win2d_contract.launches,
+            win2d.hier_gather.launches) == (before[0] + 1, before[1] + 1)
+    want5 = win2d.win2d_contract_torch(wins, ids, wgts)
+    want4 = win2d.hier_gather_torch(winsT, idsT, wgtsT)
+    torch.cuda.synchronize()
+    for got, want in ((got5, want5), (got4, want4)):
+        tol = 1e-5 * want.abs().max().item()
+        assert (got - want).abs().max().item() <= tol
+    torch.testing.assert_close(got4.transpose(2, 3)[:, :, :70], got5,
+                               rtol=0, atol=1e-5 * want5.abs().max().item())
+
+
+@pytest.mark.parametrize("name", ["chain_gather", "chain_select"])
+def test_lane_chain_matches_plain_bitwise(cuda, name):
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((3, 40, 128)).astype(
+        np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, 128, (3, 40, 128)).astype(
+        np.int32)).to(cuda)
+    fn = getattr(lane_chain, name)
+    before = fn.launches
+    got = fn(x, idx, 9)
+    assert fn.launches == before + 1
+    want = getattr(lane_chain, f"{name}_torch")(x, idx, 9)
+    assert torch.equal(got, want)
+
+
+def test_new_kernel_wrappers_reject_bad_inputs(cuda):
+    """CPU tensors and types the kernels do not take raise; nothing falls
+    back to a plain version."""
+    value, loc, attn = _grid_inputs(cuda, torch.float32)
+    blocks, wins = windowed2d_plan(GRID_SHAPES, 6, 8, 5)
+    taps = win2d.segment_taps(GRID_SHAPES, loc[:, :GRID_SIZES[0]],
+                              attn[:, :GRID_SIZES[0]], GRID_SHAPES[0],
+                              blocks[0], wins[0])
+    with pytest.raises(TypeError):
+        win2d.win2d_sample(value.half(), GRID_SHAPES, taps)
+    with pytest.raises(ValueError, match="CUDA"):
+        win2d.win2d_sample_cuda(value.cpu(), GRID_SHAPES, taps)
+    fx = _fixture(2, 5, (128,), BH=2, D=8, device=cuda)
+    with pytest.raises(TypeError):
+        win2d.win2d_contract([fx[0][0].bfloat16()], fx[2], fx[4])
+    with pytest.raises(ValueError, match="CUDA"):
+        win2d.win2d_contract_cuda([fx[0][0].cpu()], fx[2], fx[4])
+    with pytest.raises(TypeError):
+        win2d.hier_gather(fx[1], [fx[3][0].long()], fx[5])
+    x = torch.zeros(2, 128, device=cuda)
+    idx = torch.zeros(2, 128, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        lane_chain.chain_gather(x, idx.long(), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        lane_chain.chain_select_cuda(x.cpu(), idx.cpu(), 2)

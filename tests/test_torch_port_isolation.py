@@ -53,7 +53,9 @@ def test_port_imports_no_jax_module():
     assert "snipper_tpu_torch.cli.infer" in res["imported"]
     assert "snipper_tpu_torch.ops.msda" in res["imported"]
     for name in ("cli.train", "train.step", "train.engine", "losses.criterion",
-                 "matching.matcher", "data.loader", "eval.metrics"):
+                 "matching.matcher", "data.loader", "eval.metrics",
+                 "ops.win2d", "ops.lane_chain", "scripts.probe",
+                 "scripts.lanegather_probe"):
         assert f"snipper_tpu_torch.{name}" in res["imported"], name
     leaked = [m for m in res["modules"]
               if m.split(".")[0] in FORBIDDEN]
