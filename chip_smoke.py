@@ -8,12 +8,14 @@ result):
 
 1. Require CUDA; print the card's name and power limit (nvidia-smi).
 2. Build the CUDA kernels from this checkout's sources (nvcc, one process
-   per source, all started together).
+   per source, all started together); print each kernel's registers,
+   static shared memory and spills from ptxas's report.
 3. Hold each kernel against its plain PyTorch version on the card, TF32
    off, at a tiny shape with off-map locations and at the shapes the main
    paths give it (``msda_forward`` at the inference and the train shapes,
    ``msda_backward`` against the plain VJP at the train shapes), f32 and
-   bf16 value; time both with CUDA events beside the kernel's bound.
+   bf16 value; time both with CUDA events beside the kernel's bound, and
+   print the per-shape times.
 4. Drive the inference path: ``snipper_tpu_torch.cli.infer`` on
    canonical_t4 (full width and depth, 600x800, seeded random weights with
    perturbed sampling projections) over synthetic JPEG frames. Kernel
@@ -51,6 +53,7 @@ import json
 import math
 import os
 import pickle
+import re
 import statistics
 import subprocess
 import sys
@@ -122,6 +125,60 @@ def time_ms(fn, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def ptxas_report(build_log, nvcc):
+    """Per kernel of an ``nvcc -Xptxas -v`` log: registers per thread,
+    static shared memory bytes, spill stores and loads (bytes). Kernels
+    are named by the CUDA toolkit's ``cu++filt`` beside ``nvcc``, or by
+    their mangled names where the toolkit has none."""
+    mangled = re.findall(r"Compiling entry function '(\w+)'", build_log)
+    names = dict(zip(mangled, mangled))
+    filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
+    if mangled and os.path.exists(filt):
+        proc = subprocess.run([filt, "-p", *mangled], capture_output=True,
+                              text=True, timeout=60)
+        out = proc.stdout.splitlines()
+        if proc.returncode == 0 and len(out) == len(mangled):
+            names.update(zip(mangled, out))
+    out, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = out.setdefault(names[m.group(1)], {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def device_ms(fn, kernel, reps=10):
+    """The device time of the kernels whose names hold ``kernel``, per call
+    of ``fn`` (torch.profiler): the kernel alone, without the host's launch
+    and allocation time that ``time_ms`` also sees at small shapes."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and kernel in e.key)
+    return us / 1e3 / reps
 
 
 def set_tf32(enabled):
@@ -258,17 +315,23 @@ def phase_kernels():
         plain_ms = time_ms(lambda: ms_deform_attn_torch(value, shapes, loc,
                                                         attn))
         ms_b = time_ms(lambda: msda_forward(vb, shapes, loc, attn))
+        dev = device_ms(lambda: msda_forward(value, shapes, loc, attn),
+                        "msda_forward")
+        dev_b = device_ms(lambda: msda_forward(vb, shapes, loc, attn),
+                          "msda_forward")
         bound, by, nbytes, ops = msda_bound_ms(value, shapes, loc, attn)
         bound_b = msda_bound_ms(vb, shapes, loc, attn)[0]
         res[name] = dict(N=N, Lq=Lq, H=H, D=D, L=len(shapes), P=P,
                          max_abs_err=err, tol=tol, bf16_max_abs_err=err_b,
                          bf16_tol=tol_b, ms=ms, plain_ms=plain_ms,
-                         bf16_ms=ms_b, bound_ms=bound, bound_by=by,
+                         bf16_ms=ms_b, device_ms=dev, bf16_device_ms=dev_b,
+                         bound_ms=bound, bound_by=by,
                          bf16_bound_ms=bound_b, bytes=nbytes, ops=ops)
         log(f"msda_forward {name}: N={N} Lq={Lq} H={H} D={D} L={len(shapes)}"
             f" P={P}: f32 max|diff| {err:.3e} (tol {tol:g}), bf16 max|diff|"
             f" {err_b:.3e} (tol {tol_b:.3g}); kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bf16 kernel {ms_b:.4f} ms; bound "
+            f"{plain_ms:.4f} ms, bf16 kernel {ms_b:.4f} ms (device time "
+            f"alone {dev:.4f}, bf16 {dev_b:.4f} ms); bound "
             f"{bound * 1e3:.2f} us by {by} ({nbytes / 1e6:.1f} MB, "
             f"{ops / 1e9:.3f} GFLOP); no single PyTorch call computes MSDA "
             f"(library_ms null)")
@@ -326,6 +389,9 @@ def phase_backward():
                         for n_, (e, t) in zip(names, errs)}
             row[f"{tag}_ms"] = time_ms(
                 lambda: msda_backward(v, shapes, loc, attn, go))
+            row[f"{tag}_device_ms"] = device_ms(
+                lambda: msda_backward(v, shapes, loc, attn, go),
+                "msda_backward")
             with torch.enable_grad():
                 vr, lr, ar = (t.detach().requires_grad_(True)
                               for t in (v, loc, attn))
@@ -342,7 +408,8 @@ def phase_backward():
                 f"L={len(shapes)} P={P}: max|diff| "
                 + ", ".join(f"{n_} {e:.3e} (tol {t:.3g})"
                             for n_, (e, t) in zip(names, errs))
-                + f"; kernel {row[f'{tag}_ms']:.4f} ms, plain backward "
+                + f"; kernel {row[f'{tag}_ms']:.4f} ms (device time alone "
+                f"{row[f'{tag}_device_ms']:.4f} ms), plain backward "
                 f"{row[f'{tag}_plain_ms']:.4f} ms; bound {bound * 1e3:.2f}"
                 f" us by {by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} "
                 f"GFLOP); no single PyTorch call computes the MSDA VJP "
@@ -1063,15 +1130,28 @@ def main() -> int:
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(
             lambda s: _build.build(f"{s}.cu", f"lib{s}.so"), sources))
-    for b in built:
+    ptxas = {}
+    for src, b in zip(sources, built):
         log(f"built {b['path'].name} in {b['seconds']:.2f} s")
-        for line in b["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+        ptxas[src] = ptxas_report(b["log"], _build.find_nvcc())
+        for kern, r in ptxas[src].items():
+            log(f"  ptxas {kern}: {r.get('registers')} registers, "
+                f"{r.get('smem_bytes')} B static shared memory, spills "
+                f"{r.get('spill_stores')} B stored / {r.get('spill_loads')}"
+                f" B loaded")
 
     # 3. kernels against their plain versions
     shapes_res = phase_kernels()
     bwd_res = phase_backward()
+    log("msda per-shape times, ms per call f32 / bf16 value [device time "
+        "alone f32 / bf16] (" + card + "): forward "
+        + ", ".join(f"{k} {r['ms']:.4f} / {r['bf16_ms']:.4f} "
+                    f"[{r['device_ms']:.4f} / {r['bf16_device_ms']:.4f}]"
+                    for k, r in shapes_res.items())
+        + "; backward "
+        + ", ".join(f"{k} {r['f32_ms']:.4f} / {r['bf16_ms']:.4f} "
+                    f"[{r['f32_device_ms']:.4f} / {r['bf16_device_ms']:.4f}]"
+                    for k, r in bwd_res.items()))
     win_res = phase_windowed_kernels()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
@@ -1099,6 +1179,7 @@ def main() -> int:
         "bound_by": enc["bound_by"],
         "library_ms": None,
         "at": "inference encoder shape, f32: N=4 Lq=9875 H=8 D=48 L=3 P=4",
+        "ptxas": ptxas["msda_forward"],
         "per_snippet_launches": main_res["per_snippet"],
         "train_launches": train_res["launches"]["msda_forward"],
         "per_train_forward_launches": train_res["per_forward"],
@@ -1117,6 +1198,7 @@ def main() -> int:
         "bound_by": benc["f32_bound_by"],
         "library_ms": None,
         "at": "train encoder shape, f32: N=8 Lq=9875 H=8 D=48 L=3 P=4",
+        "ptxas": ptxas["msda_backward"],
         "per_train_step_launches": train_res["per_step"],
         "shapes": bwd_res,
     }]

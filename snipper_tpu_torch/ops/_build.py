@@ -3,15 +3,17 @@
 Each source under ``ops/csrc/`` has a plain C interface, so ``nvcc``
 compiles it in seconds into a shared library under
 ``snipper_tpu_torch/_build/`` (listed in ``.gitignore``); no PyTorch
-headers are involved. A library is rebuilt when its source is newer. The
-build writes to a temporary name and renames, so a process that reads the
-library never sees half of it.
+headers are involved. A library is rebuilt when its source, or a header
+the source includes from ``ops/csrc/`` (``#include "..."``, followed
+through headers), is newer. The build writes to a temporary name and
+renames, so a process that reads the library never sees half of it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
 def find_nvcc() -> str:
@@ -42,14 +45,29 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def dependencies(source: str) -> list:
+    """``ops/csrc/<source>`` and every header it includes from ``ops/csrc/``
+    with ``#include "..."``, directly or through other headers."""
+    seen, todo = [CSRC / source], [CSRC / source]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop().read_text()):
+            header = CSRC / name
+            if header.exists() and header not in seen:
+                seen.append(header)
+                todo.append(header)
+    return seen
+
+
 def build(source: str, lib_name: str) -> dict:
     """Compile ``ops/csrc/<source>`` into ``_build/<lib_name>`` if it is
-    missing or older than its source. Returns ``{"path", "seconds",
-    "log"}``; ``log`` holds nvcc's output (ptxas register and spill
-    counts), empty when the library was already current."""
+    missing or older than its source or a header the source includes
+    (:func:`dependencies`). Returns ``{"path", "seconds", "log"}``;
+    ``log`` holds nvcc's output (ptxas register and spill counts), empty
+    when the library was already current."""
     src = CSRC / source
     out = BUILD_DIR / lib_name
-    if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+    newest = max(p.stat().st_mtime for p in dependencies(source))
+    if out.exists() and out.stat().st_mtime >= newest:
         return {"path": out, "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")

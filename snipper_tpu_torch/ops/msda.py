@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 MAX_LEVELS = 8  # MSDA_MAX_LEVELS in the kernels
-MAX_BACKWARD_D = 128  # 32 * MSDA_MAX_DCHUNK in msda_backward.cu
+MAX_BACKWARD_D = 128  # grad_out held in registers: msda_backward.cu
 # pointer arguments of each library's C entry points (one per value dtype),
 # before the sizes (N, S, H, D, Lq, L, P), the level table and the stream
 _N_POINTERS = {"msda_forward": 4, "msda_backward": 7}

@@ -17,10 +17,8 @@ This module asks the card the same question with its own gathers:
     the output's scale.
 
 The lines keep the JAX probe's labels and fields, with the card's kernel
-named in brackets. The 16.4 ms and 14.85 ms in the header are the JAX
-package's TPU v5e figures, printed for context as the JAX probe prints
-them; they are no target for the card. Fixtures are made with numpy from a
-seed, as the JAX probe makes them.
+named in brackets; every time printed is the card's. Fixtures are made
+with numpy from a seed, as the JAX probe makes them.
 """
 
 from __future__ import annotations
@@ -170,9 +168,7 @@ def run(K: int = 8, device="cuda") -> int:
     """Both parts of the probe; returns the number of parts that failed."""
     where = (torch.cuda.get_device_name(device)
              if torch.device(device).type == "cuda" else "cpu")
-    print(f"lane-gather probe on {where} — TPU v5e context (the JAX "
-          f"package's figures, no target here): XLA 1D windowed emitter "
-          f"16.4 ms; one-hot Pallas kernel-only floor 14.85 ms", flush=True)
+    print(f"lane-gather probe on {where}", flush=True)
     print("[1] primitive per-element cost, in-row lane gather vs "
           "compare/select/add:", flush=True)
     prim = probe_primitive(K=K, device=device)

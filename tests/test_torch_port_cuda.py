@@ -161,6 +161,101 @@ def test_cuda_output_carries_grad_fn(cuda, value_dtype):
         assert t.grad.abs().sum().item() > 0
 
 
+def _msda_case(case, device, value_dtype):
+    """(value, shapes, loc, attn, grad_out) for one path of the two MSDA
+    kernels (``ops/csrc/msda_common.cuh``):
+
+    - ``canonical_grid``: D = 48 at the canonical level shapes with
+      encoder-style queries on every level's pixel grid (offsets of up to 4
+      pixels), Lq = 9875, the 16-byte vector path;
+    - ``far_off_map``: locations far off every map (1e9, -7.5, 3.0) among
+      uniform ones in [-0.1, 1.1];
+    - ``d6``: D = 6, no multiple of 4 or 8: the scalar path in both dtypes;
+    - ``d12``: D = 12, the vector path in f32 and the scalar one in bf16;
+    - ``d34``: D = 34 > 32 channels on the scalar path, two per lane;
+    - ``misaligned``: value and grad_out 4 or 2 bytes off 16-byte
+      alignment (contiguous views at an odd offset): the scalar path;
+    - ``ragged``: Lq = 37, no multiple of any block's query run.
+    """
+    rng = np.random.default_rng(21)
+    shapes, N, NH, D, LQ, P = {
+        "canonical_grid": (CANONICAL, 1, 2, 48, 9875, 4),
+        "far_off_map": (SHAPES, 2, 2, 8, 21, 2),
+        "d6": (SHAPES, 2, 2, 6, 19, 2),
+        "d12": (SHAPES, 2, 2, 12, 25, 3),
+        "d34": (SHAPES, 2, 2, 34, 11, 3),
+        "misaligned": (SHAPES, 2, 2, 16, 23, 2),
+        "ragged": (SHAPES, 2, 4, 48, 37, 3),
+    }[case]
+    L = len(shapes)
+    S = sum(h * w for h, w in shapes)
+    if case == "canonical_grid":
+        refs = []
+        for h, w in shapes:
+            gy, gx = np.meshgrid((np.arange(h) + 0.5) / h,
+                                 (np.arange(w) + 0.5) / w, indexing="ij")
+            refs.append(np.stack([gx.ravel(), gy.ravel()], -1))
+        norm = np.array([(w, h) for h, w in shapes], np.float64)
+        off = rng.uniform(-4, 4, (N, LQ, NH, L, P, 2))
+        loc = (np.concatenate(refs, 0)[None, :LQ, None, None, None, :]
+               + off / norm[None, None, None, :, None, :])
+    else:
+        loc = rng.uniform(-0.1, 1.1, (N, LQ, NH, L, P, 2))
+    if case == "far_off_map":
+        loc[0, 0, 0, 0, 0] = [1e9, -1e9]
+        loc[1, 3, 1] = [-7.5, 3.0]
+    v = rng.standard_normal((N, S, NH, D))
+    w = rng.uniform(0, 1, (N, LQ, NH, L, P))
+    g = rng.standard_normal((N, LQ, NH * D))
+
+    def put(x, dtype):
+        t = torch.from_numpy(x.astype(np.float32)).to(device, dtype)
+        if case != "misaligned":
+            return t
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        return view
+
+    return (put(v, value_dtype), shapes,
+            torch.from_numpy(loc.astype(np.float32)).to(device),
+            torch.from_numpy(w.astype(np.float32)).to(device),
+            put(g, value_dtype))
+
+
+@pytest.mark.parametrize("value_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["canonical_grid", "far_off_map", "d6",
+                                  "d12", "d34", "misaligned", "ragged"])
+def test_msda_kernel_paths_match_plain(cuda, case, value_dtype):
+    """Both kernels on every path they choose from the sizes, against the
+    plain forward and VJP: f32 within 1e-5 (forward absolute; each
+    gradient of its largest entry); a bf16 value within 1e-2 of the
+    largest output, and of the largest d_value entry (the plain VJP rounds
+    it once to bf16), d_loc and d_attn within 1e-5."""
+    value, shapes, loc, attn, grad_out = _msda_case(case, cuda, value_dtype)
+    before = (ms_deform_attn.launches, ms_deform_attn.backward_launches)
+    out = msda_forward(value, shapes, loc, attn)
+    got = msda_backward(value, shapes, loc, attn, grad_out)
+    assert (ms_deform_attn.launches,
+            ms_deform_attn.backward_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    want_out = ms_deform_attn_torch(value, shapes, loc, attn)
+    want = ms_deform_attn_torch_vjp(value, shapes, loc, attn, grad_out)
+    torch.cuda.synchronize()
+    bf16 = value_dtype == torch.bfloat16
+    assert out.dtype == value_dtype
+    scale = max(1.0, want_out.float().abs().max().item())
+    tol = 1e-2 * scale if bf16 else 1e-5
+    assert (out.float() - want_out.float()).abs().max().item() <= tol
+    assert all(t.dtype == torch.float32 for t in got)
+    for i, (g, w) in enumerate(zip(got, want)):
+        rel = 1e-2 if (i == 0 and bf16) else 1e-5
+        tol = rel * max(1.0, w.float().abs().max().item())
+        assert torch.isfinite(g).all()
+        assert (g.float() - w.float()).abs().max().item() <= tol, i
+
+
 def test_tiny_train_step_cuda_matches_cpu(cuda):
     """One f32 train step of the tiny model (dropout 0): the loss and the
     updated parameters on the card (kernels) against the CPU (plain)."""

@@ -212,6 +212,22 @@ def test_probe_lanegather_on_cpu(monkeypatch, capsys):
     assert out.count("x one-hot) [hier_gather") == 2
 
 
+def test_probe_lanegather_prints_no_tpu_figure(monkeypatch, capsys):
+    """The header names the device the probe ran on and no time: the JAX
+    probe's TPU v5e figures are no measurement of the card."""
+    monkeypatch.setattr(lanegather_probe, "HIER_FIXTURES",
+                        ((2, 5, (256, 128)),))
+    primitive = lanegather_probe.probe_primitive
+    monkeypatch.setattr(
+        lanegather_probe, "probe_primitive",
+        lambda K, device: primitive(K=K, R=8, n=4, grid=2, device=device))
+    assert probe.main(["lanegather", "--device", "cpu", "-K", "1"]) == 0
+    out = capsys.readouterr().out
+    header = out.splitlines()[0]
+    assert header == "lane-gather probe on cpu"  # no figure, no TPU
+    assert "TPU" not in out and "v5e" not in out
+
+
 @pytest.mark.parametrize("cmd", probe.NOT_PORTED)
 def test_probe_refuses_unported_subcommands(cmd, capsys):
     with pytest.raises(SystemExit) as exc:
