@@ -36,7 +36,9 @@ result):
    the encoder fixture, and a teleported tap, with equal overflow counts),
    ``win2d_contract`` and ``hier_gather`` at the four kernel-only
    fixtures, ``chain_gather`` and ``chain_select`` bitwise; time each
-   kernel alone beside its plain version and its bound.
+   kernel alone (per call and device time) beside its plain version and
+   its bound, and K2, K4 and K5 beside one ``embedding_bag`` call that
+   computes their function (checked against the plain version).
 8. Drive the probe path: ``snipper_tpu_torch.scripts.probe op`` (all six
    impls) and ``probe lanegather`` through ``main``, counts set to 0 just
    before each and read just after; check the exit code, that no line
@@ -478,12 +480,77 @@ def contract_bound_ms(ids, wgts, D, io_bytes):
     return (*_bound(nbytes, ops), nbytes, ops)
 
 
+# ---- the library yardstick of K2, K4 and K5: one embedding_bag call
+def contract_bag_args(wins, ids, wgts):
+    """``embedding_bag``'s arguments for ``win2d_contract``'s function (and
+    ``hier_gather``'s, up to the transpose): one table of every level's
+    windows ``[sum_l NB*BH*Wd_l, D]``, and per query, in K5's
+    ``[NB, BH, C]`` order, a bag of its ``L*K`` taps with ids offset by
+    level and by (nb, bh); an id outside ``[0, Wd_l)`` names row 0 with
+    weight 0. Returns ``(table, bags [NB*BH*C, L*K] int32, weights)``."""
+    import torch
+
+    NB, BH, C, _ = ids[0].shape
+    D = wins[0].shape[-1]
+    blk = torch.arange(NB * BH, device=ids[0].device).view(NB, BH, 1, 1)
+    bags, weights, base = [], [], 0
+    for w, i, g in zip(wins, ids, wgts):
+        Wd = w.shape[2]
+        ok = (i >= 0) & (i < Wd)
+        bags.append(base + blk * Wd + torch.where(ok, i.long(), 0))
+        weights.append(torch.where(ok, g, 0.0))
+        base += NB * BH * Wd
+    table = torch.cat([w.reshape(-1, D) for w in wins])
+    return (table, torch.cat(bags, -1).reshape(NB * BH * C, -1).int(),
+            torch.cat(weights, -1).reshape(NB * BH * C, -1))
+
+
+def sample_bag_args(value, shapes, taps_list):
+    """``embedding_bag``'s arguments for ``win2d_sample``'s function over
+    the query segments of one op call: the table is the value's rows
+    ``[B*S*H, D]``, each tap names its global row (``window_rows``) with
+    weight 0 outside its window, and the bags (``L*K`` taps each) come in
+    the output's ``[B, Lq, H]`` order, so that the call's ``[B*Lq*H, D]``
+    is the op's ``[B, Lq, H*D]``. Returns ``(table, bags int32,
+    weights)``."""
+    import torch
+
+    from snipper_tpu_torch.ops.win2d import _blocks_to_queries, window_rows
+
+    B, S, H, D = value.shape
+    bags, weights = [], []
+    for taps in taps_list:
+        rows, wgts = [], []
+        for lvl in range(len(shapes)):
+            r, in_win = window_rows(value.shape, shapes, taps, lvl)
+            rows.append(r)
+            wgts.append(torch.where(in_win, taps.wgts[lvl], 0.0))
+        for out, parts in ((bags, rows), (weights, wgts)):
+            t = torch.cat(parts, -1)                    # [NB, BH, C, L*K]
+            t = _blocks_to_queries(t, B, H, taps.seg_shape, taps.block)
+            out.append(t.reshape(B, -1, H, t.shape[-1] // H))
+    LK = bags[0].shape[-1]
+    return (value.reshape(-1, D), torch.cat(bags, 1).reshape(-1, LK).int(),
+            torch.cat(weights, 1).reshape(-1, LK))
+
+
+def library_bag(table, bags, weights):
+    """The yardstick: one ``embedding_bag(..., mode="sum")`` call."""
+    import torch.nn.functional as F
+
+    return F.embedding_bag(bags, table, per_sample_weights=weights,
+                           mode="sum")
+
+
 def phase_windowed_kernels():
     """win2d_sample against the plain windowed2d (tiny grid fixture, the
     probe's encoder fixture with a bf16 and an f32 value, and a teleported
     tap), win2d_contract and hier_gather against the gather-and-sum of
     their definition at the four probe_hier fixtures, chain_gather and
-    chain_select bitwise at the probe's 64 x [512, 128], n = 64."""
+    chain_select bitwise at the probe's 64 x [512, 128], n = 64. K2, K4
+    and K5 are timed beside one ``embedding_bag`` call that computes their
+    function, checked against the plain version within the kernel's
+    tolerance."""
     import torch
 
     from snipper_tpu_torch.ops import lane_chain, win2d
@@ -544,6 +611,22 @@ def phase_windowed_kernels():
                 q0 += seg
             row["ms"] = time_ms(lambda: [win2d.win2d_sample_cuda(
                 value, shapes, t) for t in taps])
+            row["device_ms"] = device_ms(lambda: [win2d.win2d_sample_cuda(
+                value, shapes, t) for t in taps], "win2d_kernel")
+            # the yardstick, with the weights in the value's dtype, as
+            # embedding_bag takes them (JAX rounds them to bf16 too)
+            table, bags, wts = sample_bag_args(value, shapes, taps)
+            wts = wts.to(value.dtype)
+            lib = library_bag(table, bags, wts)
+            lib_err = (lib.float().view(want.shape) - want.float()).abs() \
+                .max().item()
+            check(math.isfinite(lib_err) and lib_err <= tol,
+                  f"embedding_bag yardstick of win2d_sample {name}: max abs "
+                  f"diff {lib_err} > {tol}")
+            row["library_max_abs_err"] = lib_err
+            row["library_ms"] = time_ms(lambda: library_bag(table, bags,
+                                                            wts))
+            del table, bags, wts, lib
             row["op_call_ms"] = time_ms(
                 lambda: win2d.ms_deform_attn_windowed2d_kernel(
                     value, shapes, loc, attn, segs, **kw))
@@ -557,13 +640,16 @@ def phase_windowed_kernels():
         res["win2d_sample"][name] = row
         log(f"win2d_sample {name}: max|diff| {err:.3e} (tol {tol:.3g}), "
             f"overflow {float(got_ov)} (plain {float(want_ov)})"
-            + (f"; kernel {row['ms']:.4f} ms per op call (3 launches), "
-               f"taps + kernel {row['op_call_ms']:.4f} ms, plain windowed2d"
+            + (f"; kernel {row['ms']:.4f} ms per op call (3 launches; "
+               f"device time alone {row['device_ms']:.4f} ms), taps + "
+               f"kernel {row['op_call_ms']:.4f} ms, plain windowed2d"
                f" {row['plain_ms']:.4f} ms; bound "
                f"{row['bound_ms'] * 1e3:.2f} us by {row['bound_by']} "
                f"({row['bytes'] / 1e6:.1f} MB, {row['ops'] / 1e9:.3f} "
-               f"GFLOP); no single PyTorch call computes a windowed "
-               f"gather-contraction (library_ms null)" if "ms" in row
+               f"GFLOP); embedding_bag on the global value rows "
+               f"({row['dtype']} rows and weights) "
+               f"{row['library_ms']:.4f} ms, max|diff| "
+               f"{row['library_max_abs_err']:.3e}" if "ms" in row
                else ""))
         del got, want
     del enc_value, enc_loc, enc_attn, teleported, cases
@@ -575,13 +661,17 @@ def phase_windowed_kernels():
             NB, C, widths, device="cuda")
         D = wins[0].shape[-1]
         label = f"NB={NB} C={C} widths={widths}"
-        for name, fn, plain, args, out_shape in (
+        # the yardstick of both: the same function in K5's layout
+        bag_args = contract_bag_args(wins, ids, wgts)
+        lib = library_bag(*bag_args).view(NB, 32, C, D)
+        lib_ms = time_ms(lambda: library_bag(*bag_args))
+        for name, fn, plain, args, out_shape, kernel in (
                 ("win2d_contract", win2d.win2d_contract_cuda,
                  win2d.win2d_contract_torch, (wins, ids, wgts),
-                 (NB, 32, C, D)),
+                 (NB, 32, C, D), "win2d_contract_kernel"),
                 ("hier_gather", win2d.hier_gather_cuda,
                  win2d.hier_gather_torch, (winsT, idsT, wgtsT),
-                 (NB, 32, D, Cp))):
+                 (NB, 32, D, Cp), "hier_gather_kernel")):
             got = fn(*args)
             want = plain(*args)
             torch.cuda.synchronize()
@@ -590,21 +680,31 @@ def phase_windowed_kernels():
             check(tuple(got.shape) == out_shape and math.isfinite(err)
                   and err <= tol,
                   f"{name} {label}: max abs diff {err} > {tol}")
+            want_c = want if name == "win2d_contract" \
+                else want.transpose(2, 3)[:, :, :C]
+            lib_err = (lib - want_c).abs().max().item()
+            check(math.isfinite(lib_err) and lib_err <= tol,
+                  f"embedding_bag yardstick of {name} {label}: max abs "
+                  f"diff {lib_err} > {tol}")
             io_bytes = sum(t.numel() * 4 for t in args[1] + args[2]) \
                 + got.numel() * 4
             bound, by, nbytes, ops = contract_bound_ms(ids, wgts, D,
                                                        io_bytes)
             row = dict(max_abs_err=err, tol=tol, ms=time_ms(lambda: fn(*args)),
+                       device_ms=device_ms(lambda: fn(*args), kernel),
                        plain_ms=time_ms(lambda: plain(*args), reps=10),
+                       library_ms=lib_ms, library_max_abs_err=lib_err,
                        bound_ms=bound, bound_by=by, bytes=nbytes, ops=ops)
             res[name][label] = row
             log(f"{name} {label}: max|diff| {err:.3e} (tol {tol:.3g}); "
-                f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms;"
-                f" bound {bound * 1e3:.2f} us by {by} ({nbytes / 1e6:.1f} "
-                f"MB, {ops / 1e9:.3f} GFLOP); no single PyTorch call "
-                f"computes a windowed gather-contraction (library_ms null)")
-            del got, want
-        del wins, winsT, ids, idsT, wgts, wgtsT
+                f"kernel {row['ms']:.4f} ms (device time alone "
+                f"{row['device_ms']:.4f} ms), plain {row['plain_ms']:.4f} "
+                f"ms; bound {bound * 1e3:.2f} us by {by} ({nbytes / 1e6:.1f}"
+                f" MB, {ops / 1e9:.3f} GFLOP); embedding_bag over the "
+                f"windows in K5's layout {lib_ms:.4f} ms, max|diff| "
+                f"{lib_err:.3e}")
+            del got, want, want_c
+        del wins, winsT, ids, idsT, wgts, wgtsT, bag_args, lib
         torch.cuda.empty_cache()
 
     # ---- K3 at the probe's 64 x [512, 128], n = 64 -----------------------
@@ -1178,6 +1278,8 @@ def main() -> int:
         "bound_ms": enc["bound_ms"],
         "bound_by": enc["bound_by"],
         "library_ms": None,
+        "library": "null: the corner decomposition from loc is part of its "
+                   "work; no one PyTorch call",
         "at": "inference encoder shape, f32: N=4 Lq=9875 H=8 D=48 L=3 P=4",
         "ptxas": ptxas["msda_forward"],
         "per_snippet_launches": main_res["per_snippet"],
@@ -1197,6 +1299,8 @@ def main() -> int:
         "bound_ms": benc["f32_bound_ms"],
         "bound_by": benc["f32_bound_by"],
         "library_ms": None,
+        "library": "null: the VJP of the corner decomposition; no one "
+                   "PyTorch call",
         "at": "train encoder shape, f32: N=8 Lq=9875 H=8 D=48 L=3 P=4",
         "ptxas": ptxas["msda_backward"],
         "per_train_step_launches": train_res["per_step"],
@@ -1212,13 +1316,18 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in k2.values()
                            if r["dtype"] == "float32"),
         "ms": k2["encoder_bf16"]["ms"],
+        "device_ms": k2["encoder_bf16"]["device_ms"],
         "plain_ms": k2["encoder_bf16"]["plain_ms"],
         "bound_ms": k2["encoder_bf16"]["bound_ms"],
         "bound_by": k2["encoder_bf16"]["bound_by"],
-        "library_ms": None,
+        "library_ms": k2["encoder_bf16"]["library_ms"],
+        "library": "embedding_bag(mode='sum') over the value's global rows "
+                   "(bf16 rows and weights), bags in the output's order",
         "at": "probe op encoder fixture, bf16 value, per op call (3 "
               "launches, one per query segment): B=4 S=9875 H=8 D=48 L=3 "
               "P=4, block 8x20, margin 5",
+        "ptxas": {k: v for k, v in ptxas["win2d"].items()
+                  if "win2d_kernel" in k},
         "shapes": k2,
     })
     for name, replaces in (("win2d_contract", "scripts/lanegather_probe.py:217"),
@@ -1227,12 +1336,12 @@ def main() -> int:
                            ("chain_select", "scripts/lanegather_probe.py:78")):
         rows = win_res[name]
         head = rows[list(rows)[-1]]  # the full op-call scale fixture
+        chain = name.startswith("chain")
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": "snipper_tpu_torch/ops/csrc/"
-                      + ("lane_chain.cu" if name.startswith("chain")
-                         else "win2d.cu"),
+                      + ("lane_chain.cu" if chain else "win2d.cu"),
             "replaces": replaces,
             "launches": probe_res["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
@@ -1240,10 +1349,20 @@ def main() -> int:
             "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"],
-            "library_ms": None,
+            "library_ms": head.get("library_ms"),
+            "library": "null: a chain of 64 dependent gathers is no one "
+                       "PyTorch call" if chain else
+                       "embedding_bag(mode='sum') over one table of every "
+                       "level's windows, bags in K5's [NB, BH, C] order",
             "at": list(rows)[-1],
             "shapes": rows,
         })
+        if not chain:
+            kernel = {"hier_gather": "hier_gather_kernel",
+                      "win2d_contract": "win2d_contract_kernel"}[name]
+            kernels[-1]["device_ms"] = head["device_ms"]
+            kernels[-1]["ptxas"] = {k: v for k, v in ptxas["win2d"].items()
+                                    if kernel in k}
     log(f"card: {card}; inference path "
         f"{main_res['steady_snippets_per_s']:.3f} snippets/s; training "
         f"path {train_res['step_ms']:.2f} ms/step, "

@@ -22,7 +22,7 @@
 // win2d_contract replaces `_onehot_reference` (scripts/lanegather_probe.py:
 // 217-236), which runs K2's kernel body on windows staged beforehand: the
 // same contraction, with win_l read from wins[l] [NB, BH, Wd_l, D] and
-// the result written as [NB, BH, C, D]. The two share `contract_tile`.
+// the result written as [NB, BH, C, D].
 //
 // hier_gather replaces `hier_gather_sample` (lanegather_probe.py:164-190):
 // the same contraction on the transposed layout, winsT[l] [NB, BH, D, Wd_l]
@@ -30,39 +30,64 @@
 //
 // Design. The TPU has no VMEM gather, so K2 and K5 build a weighted one-hot
 // [C, Wd] and contract it on the MXU, and K4 asks whether Mosaic's in-tile
-// lane gather beats that. A GPU gathers from shared memory directly:
-// - win2d_sample / win2d_contract: one block per (query block, b*h); the
-//   window goes into dynamic shared memory a tile of rows at a time (all of
-//   it at once when it fits the budget), and each thread accumulates its
-//   (query, channel) outputs over the taps whose id falls in the tile, with
-//   f32 weights and an f32 sum held in shared memory across levels and
-//   tiles.
+// lane gather beats that. A GPU gathers rows directly:
+// - win2d_contract is msda_forward's design (msda_common.cuh) with one
+//   window row per tap instead of four corners: a group of threads per
+//   (query, b*h) over float4 channel vectors, groups packed over 256-thread
+//   blocks that run over consecutive queries of (nb, bh) after (nb, bh).
+//   The block reads each tap's id and weight once, level by level, into a
+//   table in shared memory that its groups read back as broadcasts; a tap
+//   of weight 0 or with an id outside [0, Wd) is marked and skipped. Rows
+//   are read through L1/L2, the sum is kept in f32 registers and written
+//   once. Nothing is staged, and nothing bounds C or D. A scalar path takes
+//   a D that is not a multiple of 4, or an unaligned window or output.
 // - hier_gather asks the TPU probe's question of the card: a warp holds a
-//   32-column tile of one channel row of the transposed window in
-//   registers, one column per lane, and each lane takes a tap's value with
-//   __shfl_sync when the tap's id falls in that tile, masked otherwise. The
-//   two timings side by side are the card's answer (PERF.md).
+//   32-column tile of the transposed window in registers, one column per
+//   lane and DC channel rows at once, and each lane takes a tap's value with
+//   __shfl_sync. Lane j owns query 32 * group + j and reads its taps of the
+//   level once, into its own column of the warp's slice of shared memory;
+//   per tile it marks which taps fall in the tile, and the warp runs as
+//   many shuffle rounds as the most any lane has there (none, and no column
+//   load, where no lane has one), each round serving every lane's next tap,
+//   looked up by its index, on all DC channels. The warps of a block take
+//   the query groups and channel chunks of one (nb, bh) and walk its tiles
+//   in the same order, so L1 serves the window's repeats. Registers hold
+//   the DC columns and sums, at most 128 a thread, so two blocks share an
+//   SM: taps kept in registers instead (165 registers, one block) ran
+//   1.5x slower (PERF.md).
+// - win2d_sample (the first version, not redesigned yet): one block per
+//   (query block, b*h) stages each level's window into dynamic shared
+//   memory a tile of rows at a time, whether or not every row is touched,
+//   and each thread accumulates its (query, channel) outputs over the taps
+//   whose id falls in the tile, re-reading the query's taps for every
+//   tile, in an f32 sum held in shared memory.
 //
 // What bounds them: memory. The least bytes are the ids and weights (8 bytes
 // a tap), the window rows the taps touch, and the output; the contraction is
-// 2 flops a tap and channel. At the probe's encoder fixture win2d_sample
-// must move about 0.2 GB (~0.07 ms at 3.35 TB/s). This first version is
-// simple: it stages whole windows whether or not every row is touched, and
-// re-reads each query's taps for every tile.
+// 2 flops a tap and channel. At the probe's (80, 128) fixture
+// win2d_contract and hier_gather must move about 1.37 GB, nearly all of it
+// the windows (0.41 ms at 3.35 TB/s); win2d_sample at the encoder fixture
+// about 0.19 GB in bf16 (0.057 ms), two thirds of it ids and weights. On top
+// of that win2d_contract reads 3.0 GB of rows through L1/L2 at that fixture,
+// and hier_gather retires one warp shuffle per round and channel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "msda_common.cuh"
+
 #define W2D_MAX_LEVELS 8
 #define W2D_THREADS 256
-// dynamic shared memory of one block: the f32 accumulator [C, D] plus one
+// win2d_sample's dynamic shared memory: the f32 accumulator [C, D] plus one
 // tile of window rows; two blocks fit on one SM
 #define W2D_SMEM_BUDGET (100 * 1024)
+// win2d_contract's per-block tap table: 16 KB
+#define W2C_TABLE 2048
 #define HG_MAX_TAPS 16
 #define HG_THREADS 256
 
-struct Levels {
+struct WinLevels {
   const void* src[W2D_MAX_LEVELS];    // wins[l] (contract) or unused (sample)
   const int* ids[W2D_MAX_LEVELS];     // [NB, BH, C, K]
   const float* wgts[W2D_MAX_LEVELS];  // [NB, BH, C, K]
@@ -75,6 +100,7 @@ struct Segment {  // win2d_sample: the query segment's pixel grid and blocks
   int hs, ws, bh, bw, nbx;
 };
 
+// ---------------------------------------------------------------- K2
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -107,13 +133,12 @@ __device__ __forceinline__ void contract_tile(const T* tile, int r0, int n,
   }
 }
 
-// One block per (nb, bh). kSample: stage windows from value [B, S, H, D] at
-// the anchors [L, NB, 2] (y_lo, x_lo) and write out [B, hs*ws, H*D];
-// otherwise stage wins[l] [NB, BH, Wd, D] and write out [NB, BH, C, D].
-template <typename T, bool kSample>
+// One block per (nb, bh): stage windows from value [B, S, H, D] at the
+// anchors [L, NB, 2] (y_lo, x_lo) and write out [B, hs*ws, H*D].
+template <typename T>
 __global__ void __launch_bounds__(W2D_THREADS)
 win2d_kernel(const T* __restrict__ value, const int* __restrict__ anchors,
-             void* __restrict__ out, Levels lv, Segment sg, int L, int K,
+             T* __restrict__ out, WinLevels lv, Segment sg, int L, int K,
              int64_t S, int H, int D, int C, int NB, int BH, int tile_rows) {
   extern __shared__ float smem[];
   float* acc = smem;                          // [C, D]
@@ -130,23 +155,17 @@ win2d_kernel(const T* __restrict__ value, const int* __restrict__ anchors,
     for (int r0 = 0; r0 < rows; r0 += tile_rows) {
       const int n = min(tile_rows, rows - r0);
       __syncthreads();  // the previous tile is consumed
-      if constexpr (kSample) {
-        const int y_lo = anchors[((int64_t)l * NB + nb) * 2];
-        const int x_lo = anchors[((int64_t)l * NB + nb) * 2 + 1];
-        const int wx = lv.wx[l];
-        const int64_t hl = lv.h[l], wl = lv.w[l];
-        const T* vb = value + ((int64_t)b * S + lv.start[l]) * H * D
-                      + (int64_t)hh * D;
-        for (int j = threadIdx.x; j < n * D; j += blockDim.x) {
-          const int r = r0 + j / D, d = j - (j / D) * D;
-          const int64_t y = y_lo + r / wx, x = x_lo + r % wx;
-          tile[j] = (y < hl && x < wl) ? vb[(y * wl + x) * H * D + d]
-                                       : static_cast<T>(0.f);
-        }
-      } else {
-        const T* win = static_cast<const T*>(lv.src[l])
-                       + (blk * rows + r0) * D;
-        for (int j = threadIdx.x; j < n * D; j += blockDim.x) tile[j] = win[j];
+      const int y_lo = anchors[((int64_t)l * NB + nb) * 2];
+      const int x_lo = anchors[((int64_t)l * NB + nb) * 2 + 1];
+      const int wx = lv.wx[l];
+      const int64_t hl = lv.h[l], wl = lv.w[l];
+      const T* vb = value + ((int64_t)b * S + lv.start[l]) * H * D
+                    + (int64_t)hh * D;
+      for (int j = threadIdx.x; j < n * D; j += blockDim.x) {
+        const int r = r0 + j / D, d = j - (j / D) * D;
+        const int64_t y = y_lo + r / wx, x = x_lo + r % wx;
+        tile[j] = (y < hl && x < wl) ? vb[(y * wl + x) * H * D + d]
+                                     : static_cast<T>(0.f);
       }
       __syncthreads();
       contract_tile(tile, r0, n, ids, wgts, C, K, D, acc);
@@ -154,33 +173,27 @@ win2d_kernel(const T* __restrict__ value, const int* __restrict__ anchors,
   }
 
   for (int i = threadIdx.x; i < C * D; i += blockDim.x) {
-    if constexpr (kSample) {
-      const int c = i / D, d = i - c * D;
-      const int y = (nb / sg.nbx) * sg.bh + c / sg.bw;
-      const int x = (nb % sg.nbx) * sg.bw + c % sg.bw;
-      if (y < sg.hs && x < sg.ws)
-        store(static_cast<T*>(out)
-                  + (((int64_t)b * sg.hs * sg.ws + y * sg.ws + x) * H + hh)
-                        * D + d,
-              acc[i]);
-    } else {
-      static_cast<float*>(out)[blk * C * D + i] = acc[i];
-    }
+    const int c = i / D, d = i - c * D;
+    const int y = (nb / sg.nbx) * sg.bh + c / sg.bw;
+    const int x = (nb % sg.nbx) * sg.bw + c % sg.bw;
+    if (y < sg.hs && x < sg.ws)
+      store(out + (((int64_t)b * sg.hs * sg.ws + y * sg.ws + x) * H + hh) * D
+                + d,
+            acc[i]);
   }
 }
 
-template <typename T, bool kSample>
+template <typename T>
 static int launch_win2d(const void* value, const void* anchors, void* out,
-                        const void* const* src, const void* const* ids,
-                        const void* const* wgts, const int64_t* table,
-                        int L, int K, int64_t S, int H, int D, int C, int NB,
-                        int BH, const int* seg, void* stream) {
+                        const void* const* ids, const void* const* wgts,
+                        const int64_t* table, int L, int K, int64_t S, int H,
+                        int D, int C, int NB, int BH, const int* seg,
+                        void* stream) {
   if (L < 1 || L > W2D_MAX_LEVELS) return (int)cudaErrorInvalidValue;
-  Levels lv = {};
+  WinLevels lv = {};
   int max_rows = 0;
   for (int l = 0; l < L; ++l) {
     // table rows: (rows, wx, h, w, start)
-    lv.src[l] = src ? src[l] : nullptr;
     lv.ids[l] = static_cast<const int*>(ids[l]);
     lv.wgts[l] = static_cast<const float*>(wgts[l]);
     lv.rows[l] = (int)table[5 * l];
@@ -190,67 +203,233 @@ static int launch_win2d(const void* value, const void* anchors, void* out,
     lv.start[l] = table[5 * l + 4];
     if (lv.rows[l] > max_rows) max_rows = lv.rows[l];
   }
-  Segment sg = {};
-  if (seg)
-    sg = Segment{seg[0], seg[1], seg[2], seg[3],
-                 (seg[1] + seg[3] - 1) / seg[3]};
+  const Segment sg = {seg[0], seg[1], seg[2], seg[3],
+                      (seg[1] + seg[3] - 1) / seg[3]};
   const int64_t acc_bytes = (int64_t)C * D * sizeof(float);
   const int64_t row_bytes = (int64_t)D * sizeof(T);
   int64_t tile_rows = (W2D_SMEM_BUDGET - acc_bytes) / row_bytes;
   if (tile_rows > max_rows) tile_rows = max_rows;
   if (tile_rows < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(acc_bytes + tile_rows * row_bytes);
-  auto kernel = win2d_kernel<T, kSample>;
+  auto kernel = win2d_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int64_t blocks = (int64_t)NB * BH;
   if (blocks == 0) return (int)cudaSuccess;
   kernel<<<(unsigned)blocks, W2D_THREADS, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(value), static_cast<const int*>(anchors), out, lv,
-      sg, L, K, S, H, D, C, NB, BH, (int)tile_rows);
+      static_cast<const T*>(value), static_cast<const int*>(anchors),
+      static_cast<T*>(out), lv, sg, L, K, S, H, D, C, NB, BH, (int)tile_rows);
   return (int)cudaGetLastError();
 }
 
-// One block per (nb, bh); each warp takes (group of 32 queries, channel d)
-// tasks. Lane j owns query c = 32 * group + j and holds its K <= 16 taps of
-// the level in registers; per 32-column tile of channel row d of winT, lane
-// j loads column j, and each lane shuffles in the column its tap names.
-__global__ void __launch_bounds__(HG_THREADS)
-hier_gather_kernel(Levels lv, float* __restrict__ out, int L, int K, int D,
-                   int Cp) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int64_t blk = blockIdx.x;
-  const int groups = Cp / 32;
-  for (int task = warp; task < groups * D; task += nwarps) {
-    const int g = task / D, d = task - g * D;
-    const int c = g * 32 + lane;
-    float acc = 0.f;
+// ---------------------------------------------------------------- K5
+// One tap of win2d_contract's table: the window row its id names, or -1
+// for a tap that adds nothing, and its weight. One 8-byte shared load.
+struct __align__(8) WinTap {
+  int row;
+  float w;
+};
+
+// Fill the block's table for taps [k0, k0 + tc) of level l of each group's
+// query: slot s holds tap k0 + s % tc of the block's query q0 + s / tc.
+__device__ __forceinline__ void fill_win_taps(WinTap* table, const Plan& pl,
+                                              int k0, int K, int64_t q0,
+                                              int64_t Q, int Wd,
+                                              const int* __restrict__ ids,
+                                              const float* __restrict__ wgts) {
+  for (int s = threadIdx.x; s < pl.qb * pl.tc; s += blockDim.x) {
+    const int sg = s / pl.tc, k = k0 + s - sg * pl.tc;
+    const int64_t q = q0 + sg;
+    WinTap tp = {-1, 0.f};
+    if (q < Q && k < K) {
+      const int64_t i = q * K + k;  // [NB, BH, C, K] flat
+      const int id = __ldg(ids + i);
+      const float w = __ldg(wgts + i);
+      if (w != 0.f && id >= 0 && id < Wd) tp = WinTap{id, w};
+    }
+    table[s] = tp;
+  }
+}
+
+// Queries are flattened over (nb, bh, c), C to a (nb, bh): group gi of
+// block x takes query q = x * qb + gi, whose output row is out[q].
+template <int VEC, typename idx_t>
+__global__ void __launch_bounds__(MSDA_THREADS)
+win2d_contract_kernel(float* __restrict__ out, WinLevels lv, int L, int K,
+                      int D, int C, int64_t Q, Plan pl) {
+  constexpr int KV = VEC == 1 ? 4 : 1;  // vectors per thread in one pass
+  __shared__ WinTap table[W2C_TABLE];
+  const int64_t q0 = (int64_t)blockIdx.x * pl.qb;
+  const int gi = threadIdx.x / pl.g, j = threadIdx.x - gi * pl.g;
+  const int64_t q = q0 + gi;
+  const bool active = gi < pl.qb && q < Q;
+  const idx_t blk = (idx_t)(q / C);
+  // passes over the thread's vectors; one pass wherever D <= 32 * VEC * KV
+  for (int v0 = 0; v0 < pl.vpl; v0 += KV) {
+    float acc[KV][VEC];
+#pragma unroll
+    for (int k = 0; k < KV; ++k)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[k][e] = 0.f;
     for (int l = 0; l < L; ++l) {
       const int Wd = lv.rows[l];
-      const float* row = static_cast<const float*>(lv.src[l])
-                         + (blk * D + d) * Wd;
-      const int* id_c = lv.ids[l] + blk * K * Cp + c;
-      const float* wg_c = lv.wgts[l] + blk * K * Cp + c;
-      int id[HG_MAX_TAPS];
-      float wg[HG_MAX_TAPS];
+      const float* win = static_cast<const float*>(lv.src[l])
+                         + blk * Wd * D;
+      for (int k0 = 0; k0 < K; k0 += pl.tc) {
+        __syncthreads();
+        fill_win_taps(table, pl, k0, K, q0, Q, Wd, lv.ids[l], lv.wgts[l]);
+        __syncthreads();
+        if (!active) continue;
+        const WinTap* tt = table + gi * pl.tc;
+        const int nt = min(pl.tc, K - k0);
+#pragma unroll 4
+        for (int s = 0; s < nt; ++s) {
+          const WinTap tp = tt[s];
+          if (tp.row < 0) continue;
+          const float* row = win + (idx_t)tp.row * D;
 #pragma unroll
-      for (int k = 0; k < HG_MAX_TAPS; ++k) {
-        id[k] = k < K ? id_c[(int64_t)k * Cp] : -1;
-        wg[k] = k < K ? wg_c[(int64_t)k * Cp] : 0.f;
-      }
-      for (int t0 = 0; t0 < Wd; t0 += 32) {
-        const float col = t0 + lane < Wd ? row[t0 + lane] : 0.f;
+          for (int k = 0; k < KV; ++k) {
+            const int vi = j + (v0 + k) * pl.g;
+            if (vi >= pl.nv) break;
+            float v[VEC];
+            VecIO<float, VEC>::load(row + vi * VEC, v);
 #pragma unroll
-        for (int k = 0; k < HG_MAX_TAPS; ++k) {
-          const int local = id[k] - t0;
-          const float v = __shfl_sync(0xffffffffu, col, local & 31);
-          if (local >= 0 && local < 32) acc += wg[k] * v;
+            for (int e = 0; e < VEC; ++e) acc[k][e] += tp.w * v[e];
+          }
         }
       }
     }
-    out[(blk * D + d) * Cp + c] = acc;
+    if (active) {
+      float* o = out + (idx_t)q * D;
+#pragma unroll
+      for (int k = 0; k < KV; ++k) {
+        const int vi = j + (v0 + k) * pl.g;
+        if (vi >= pl.nv) break;
+        VecIO<float, VEC>::store(o + vi * VEC, acc[k]);
+      }
+    }
+  }
+}
+
+static int launch_win2d_contract(void* out, const void* const* wins,
+                                 const void* const* ids,
+                                 const void* const* wgts,
+                                 const int64_t* table, int L, int K, int D,
+                                 int C, int NB, int BH, void* stream) {
+  if (L < 1 || L > W2D_MAX_LEVELS || K < 1 || D < 1 || C < 1)
+    return (int)cudaErrorInvalidValue;
+  WinLevels lv = {};
+  const int64_t Q = (int64_t)NB * BH * C;
+  const int64_t lim = (int64_t)1 << 31;
+  bool vec = D % 4 == 0 && aligned(out, 16);
+  bool i32 = Q * D < lim;
+  for (int l = 0; l < L; ++l) {
+    lv.src[l] = wins[l];
+    lv.ids[l] = static_cast<const int*>(ids[l]);
+    lv.wgts[l] = static_cast<const float*>(wgts[l]);
+    lv.rows[l] = (int)table[5 * l];
+    vec = vec && aligned(wins[l], 16);
+    i32 = i32 && (int64_t)NB * BH * lv.rows[l] * D < lim;
+  }
+  if (Q * K >= lim) return (int)cudaErrorInvalidValue;
+  if (Q == 0) return (int)cudaSuccess;
+  Plan pl = make_plan(D, vec ? 4 : 1, K, Q);
+  pl.tc = K < W2C_TABLE / pl.qb ? K : W2C_TABLE / pl.qb;
+  const int64_t blocks = (Q + pl.qb - 1) / pl.qb;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid((unsigned)blocks);
+  if (vec && i32)
+    win2d_contract_kernel<4, int><<<grid, MSDA_THREADS, 0, st>>>(
+        o, lv, L, K, D, C, Q, pl);
+  else if (vec)
+    win2d_contract_kernel<4, int64_t><<<grid, MSDA_THREADS, 0, st>>>(
+        o, lv, L, K, D, C, Q, pl);
+  else if (i32)
+    win2d_contract_kernel<1, int><<<grid, MSDA_THREADS, 0, st>>>(
+        o, lv, L, K, D, C, Q, pl);
+  else
+    win2d_contract_kernel<1, int64_t><<<grid, MSDA_THREADS, 0, st>>>(
+        o, lv, L, K, D, C, Q, pl);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- K4
+// One block per (nb, bh); each warp takes (channel chunk, query group)
+// tasks, the groups of one chunk on neighbouring warps. Lane j owns query
+// c = 32 * group + j; it keeps the ids (-1 for a tap of weight 0, which is
+// dropped) and weights of its taps of the level in column j of the warp's
+// shared-memory slice, which only lane j reads, so no barrier is needed.
+// Per 32-column tile of the window it loads column t0 + j of DC channel
+// rows of winT, and the warp runs `rounds` shuffle rounds, the most taps
+// any lane has in the tile: in round r each lane takes its r-th tap there
+// (weight 0 if it has none) and shuffles in that column from the lane that
+// holds it, on each of the DC channels. An id outside [0, Wd) names no
+// column, or a column of the last tile past Wd, which holds 0: it adds
+// nothing.
+template <int DC>
+__global__ void __launch_bounds__(HG_THREADS, 2)
+hier_gather_kernel(WinLevels lv, float* __restrict__ out, int L, int K,
+                   int D, int Cp) {
+  const unsigned full = 0xffffffffu;
+  __shared__ int s_id[HG_THREADS / 32][HG_MAX_TAPS][32];
+  __shared__ float s_wg[HG_THREADS / 32][HG_MAX_TAPS][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int64_t blk = blockIdx.x;
+  const int groups = Cp / 32, chunks = (D + DC - 1) / DC;
+  for (int task = warp; task < groups * chunks; task += nwarps) {
+    const int ch = task / groups, g = task - ch * groups;
+    const int d0 = ch * DC, c = g * 32 + lane;
+    float acc[DC];
+#pragma unroll
+    for (int dd = 0; dd < DC; ++dd) acc[dd] = 0.f;
+    for (int l = 0; l < L; ++l) {
+      const int Wd = lv.rows[l];
+      const float* rows = static_cast<const float*>(lv.src[l])
+                          + (blk * D + d0) * Wd;
+      const int* id_c = lv.ids[l] + blk * K * Cp + c;
+      const float* wg_c = lv.wgts[l] + blk * K * Cp + c;
+#pragma unroll
+      for (int k = 0; k < HG_MAX_TAPS; ++k) {
+        const float w = k < K ? __ldg(wg_c + (int64_t)k * Cp) : 0.f;
+        s_id[warp][k][lane] = w != 0.f ? __ldg(id_c + (int64_t)k * Cp) : -1;
+        s_wg[warp][k][lane] = w;
+      }
+      for (int t0 = 0; t0 < Wd; t0 += 32) {
+        unsigned mask = 0;  // the lane's taps in this tile
+#pragma unroll
+        for (int k = 0; k < HG_MAX_TAPS; ++k)
+          mask |= ((unsigned)s_id[warp][k][lane] - (unsigned)t0 < 32u)
+                  << k;
+        const int rounds = __reduce_max_sync(full, __popc(mask));
+        if (rounds == 0) continue;
+        float col[DC];
+        const bool in = t0 + lane < Wd;
+#pragma unroll
+        for (int dd = 0; dd < DC; ++dd)
+          col[dd] = in && d0 + dd < D
+                        ? __ldg(rows + (int64_t)dd * Wd + t0 + lane) : 0.f;
+        for (int r = 0; r < rounds; ++r) {
+          int src = 0;
+          float wk = 0.f;
+          if (mask) {
+            const int k = __ffs(mask) - 1;  // the lane's next tap
+            mask &= mask - 1;
+            src = s_id[warp][k][lane] - t0;
+            wk = s_wg[warp][k][lane];
+          }
+#pragma unroll
+          for (int dd = 0; dd < DC; ++dd)
+            acc[dd] += wk * __shfl_sync(full, col[dd], src);
+        }
+      }
+    }
+#pragma unroll
+    for (int dd = 0; dd < DC; ++dd)
+      if (d0 + dd < D) out[(blk * D + d0 + dd) * Cp + c] = acc[dd];
   }
 }
 
@@ -265,9 +444,8 @@ int win2d_sample_f32(const void* value, const void* anchors, void* out,
                      const int64_t* table, const int* seg, int L, int K,
                      int64_t S, int H, int D, int C, int NB, int BH,
                      void* stream) {
-  return launch_win2d<float, true>(value, anchors, out, nullptr, ids, wgts,
-                                   table, L, K, S, H, D, C, NB, BH, seg,
-                                   stream);
+  return launch_win2d<float>(value, anchors, out, ids, wgts, table, L, K, S,
+                             H, D, C, NB, BH, seg, stream);
 }
 
 int win2d_sample_bf16(const void* value, const void* anchors, void* out,
@@ -275,9 +453,8 @@ int win2d_sample_bf16(const void* value, const void* anchors, void* out,
                       const int64_t* table, const int* seg, int L, int K,
                       int64_t S, int H, int D, int C, int NB, int BH,
                       void* stream) {
-  return launch_win2d<__nv_bfloat16, true>(value, anchors, out, nullptr, ids,
-                                           wgts, table, L, K, S, H, D, C, NB,
-                                           BH, seg, stream);
+  return launch_win2d<__nv_bfloat16>(value, anchors, out, ids, wgts, table,
+                                     L, K, S, H, D, C, NB, BH, seg, stream);
 }
 
 // wins[l] [NB, BH, Wd_l, D] f32 -> out [NB, BH, C, D] f32; table as above
@@ -286,9 +463,8 @@ int win2d_contract_f32(void* out, const void* const* wins,
                        const void* const* ids, const void* const* wgts,
                        const int64_t* table, int L, int K, int D, int C,
                        int NB, int BH, void* stream) {
-  return launch_win2d<float, false>(nullptr, nullptr, out, wins, ids, wgts,
-                                    table, L, K, 0, 1, D, C, NB, BH, nullptr,
-                                    stream);
+  return launch_win2d_contract(out, wins, ids, wgts, table, L, K, D, C, NB,
+                               BH, stream);
 }
 
 // winsT[l] [NB, BH, D, Wd_l] f32, idsT/wgtsT [NB, BH, K, Cp] -> out
@@ -297,9 +473,10 @@ int hier_gather_f32(void* out, const void* const* winsT,
                     const void* const* idsT, const void* const* wgtsT,
                     const int64_t* widths, int L, int K, int D, int Cp,
                     int NB, int BH, void* stream) {
-  if (L < 1 || L > W2D_MAX_LEVELS || K < 1 || K > HG_MAX_TAPS || Cp % 32)
+  if (L < 1 || L > W2D_MAX_LEVELS || K < 1 || K > HG_MAX_TAPS || D < 1 ||
+      Cp % 32)
     return (int)cudaErrorInvalidValue;
-  Levels lv = {};
+  WinLevels lv = {};
   for (int l = 0; l < L; ++l) {
     lv.src[l] = winsT[l];
     lv.ids[l] = static_cast<const int*>(idsT[l]);
@@ -307,10 +484,17 @@ int hier_gather_f32(void* out, const void* const* winsT,
     lv.rows[l] = (int)widths[l];
   }
   const int64_t blocks = (int64_t)NB * BH;
-  if (blocks == 0) return (int)cudaSuccess;
-  hier_gather_kernel<<<(unsigned)blocks, HG_THREADS, 0,
-                       (cudaStream_t)stream>>>(lv, static_cast<float*>(out),
-                                               L, K, D, Cp);
+  if (blocks == 0 || Cp == 0) return (int)cudaSuccess;
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = (cudaStream_t)stream;
+  // 24 channels a task where D divides into them (2 chunks at D = 48),
+  // else 8, the last chunk masked
+  if (D % 24 == 0)
+    hier_gather_kernel<24><<<(unsigned)blocks, HG_THREADS, 0, st>>>(
+        lv, o, L, K, D, Cp);
+  else
+    hier_gather_kernel<8><<<(unsigned)blocks, HG_THREADS, 0, st>>>(
+        lv, o, L, K, D, Cp);
   return (int)cudaGetLastError();
 }
 

@@ -14,7 +14,7 @@ Counterparts in the JAX package:
   window and contracts the taps against it;
 - :func:`win2d_contract`: ``_onehot_reference``
   (``scripts/lanegather_probe.py:217``), K2's kernel body on windows staged
-  beforehand;
+  beforehand; the kernel gathers each tap's window row directly;
 - :func:`hier_gather`: ``hier_gather_sample`` (``lanegather_probe.py:164``),
   the same contraction on the transposed layout.
 
@@ -37,7 +37,8 @@ from snipper_tpu_torch.ops.deform_attn import (corner_taps, gather_taps,
 
 MAX_LEVELS = 8      # W2D_MAX_LEVELS in win2d.cu
 MAX_TAPS = 16       # HG_MAX_TAPS: hier_gather's taps per query and level
-SMEM_BUDGET = 100 * 1024  # W2D_SMEM_BUDGET: accumulator + one window tile
+# W2D_SMEM_BUDGET: win2d_sample's accumulator and one window tile
+SMEM_BUDGET = 100 * 1024
 
 _vp, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
@@ -324,7 +325,7 @@ def win2d_contract_torch(wins, ids, wgts) -> torch.Tensor:
 def win2d_contract_cuda(wins, ids, wgts) -> torch.Tensor:
     """Launch ``win2d_contract``: ``wins[l] [NB, BH, Wd_l, D]`` f32,
     ``ids[l]`` int32 / ``wgts[l]`` f32 ``[NB, BH, C, K]`` -> ``[NB, BH, C, D]``
-    f32."""
+    f32; a group of threads per (query, b*h), any C, K and D."""
     L = len(wins)
     NB, BH, C, K = ids[0].shape
     D = wins[0].shape[-1]
@@ -334,9 +335,6 @@ def win2d_contract_cuda(wins, ids, wgts) -> torch.Tensor:
             or any(tuple(t.shape) != (NB, BH, C, K) for t in ids + wgts):
         raise ValueError("win2d_contract: wins [NB, BH, Wd, D] and ids/wgts "
                          "[NB, BH, C, K] per level, 1 to 8 levels")
-    if C * D * 4 + D * 4 > SMEM_BUDGET:
-        raise ValueError(f"win2d_contract: C={C}, D={D} exceed the kernel's "
-                         f"{SMEM_BUDGET} bytes of shared memory")
     f32, i32 = (torch.float32,), (torch.int32,)
     _check_cuda("win2d_contract", [*wins, *ids, *wgts], dev,
                 [f32] * L + [i32] * L + [f32] * L)

@@ -11,10 +11,10 @@ This module asks the card the same question with its own gathers:
 [2] ``probe_hier``: at the JAX probe's four kernel-only fixtures, the
     windowed contraction as a register-tile shuffle gather on the
     transposed layout (``hier_gather``, counterpart of
-    ``hier_gather_sample``) against the same contraction gathering from a
-    shared-memory window (``win2d_contract``, counterpart of the one-hot
-    kernel ``_onehot_reference``), checked against each other to 1e-5 of
-    the output's scale.
+    ``hier_gather_sample``) against the same contraction gathering each
+    tap's window row directly (``win2d_contract``, counterpart of the
+    one-hot kernel ``_onehot_reference``), checked against each other to
+    1e-5 of the output's scale.
 
 The lines keep the JAX probe's labels and fields, with the card's kernel
 named in brackets; every time printed is the card's. Fixtures are made
@@ -136,7 +136,7 @@ def probe_hier(K: int = 8, device="cuda") -> int:
             ms1 = time_fn(_onehot_reference, wins, ids, wgts, K=K)
             print(f"  one-hot MXU kernel   {label}: {ms1:7.2f} ms "
                   f"({sel_g:.2f} G select-elems) "
-                  f"[win2d_contract, shared-memory gather]", flush=True)
+                  f"[win2d_contract, direct row gather]", flush=True)
         except Exception as e:  # noqa: BLE001 - reported, counted
             ms1 = None
             failed += 1

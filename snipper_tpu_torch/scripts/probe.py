@@ -186,7 +186,7 @@ def cmd_op(args) -> int:
 
 def cmd_lanegather(args) -> int:
     """Hierarchical gather probe: the lane-chain primitives, then the
-    register-tile shuffle gather against the shared-memory contraction;
+    register-tile shuffle gather against the direct row-gather contraction;
     returns the number of parts that failed."""
     from snipper_tpu_torch.models.snipper import resolve_device
     from snipper_tpu_torch.scripts import lanegather_probe

@@ -339,6 +339,157 @@ def test_win2d_sample_matches_plain(cuda, value_dtype, teleport):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+def _misaligned(t):
+    """A contiguous copy of ``t`` one element off 16-byte alignment."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.parametrize("value_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["ragged", "d6", "d12", "misaligned",
+                                  "many_taps"])
+def test_win2d_sample_kernel_sizes_match_plain(cuda, case, value_dtype):
+    """``win2d_sample`` at sizes beyond the probe's, against the plain
+    windowed2d, with the tolerances of
+    :func:`test_win2d_sample_matches_plain` and equal overflow counts:
+
+    - ``ragged``: 5x7 query blocks, so every segment has a ragged edge of
+      padded queries;
+    - ``d6``, ``d12``: D = 6 and 12, no multiple of 16 bytes in bf16;
+    - ``misaligned``: the value one element off 16-byte alignment;
+    - ``many_taps``: P = 6, 72 taps per query at D = 48.
+    """
+    D, P, block = {"ragged": (8, 2, (5, 7)), "d6": (6, 2, (6, 8)),
+                   "d12": (12, 2, (6, 8)), "misaligned": (16, 2, (6, 8)),
+                   "many_taps": (48, 6, (6, 8))}[case]
+    value, loc, attn = _grid_inputs(cuda, value_dtype, D=D, P=P)
+    if case == "misaligned":
+        value = _misaligned(value)
+    kw = dict(block_h=block[0], block_w=block[1], margin_px=5)
+    before = win2d.win2d_sample.launches
+    got, got_ov = win2d.ms_deform_attn_windowed2d_kernel(
+        value, GRID_SHAPES, loc, attn, GRID_SIZES, **kw)
+    assert win2d.win2d_sample.launches == before + len(GRID_SHAPES)
+    want, want_ov = ms_deform_attn_windowed2d(value, GRID_SHAPES, loc, attn,
+                                              GRID_SIZES, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == value_dtype
+    assert float(got_ov) == float(want_ov)
+    scale = max(1.0, want.float().abs().max().item())
+    tol = 1e-5 if value_dtype == torch.float32 else 2.0 ** -7 * scale
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def _contract_case(case, device):
+    """(wins, ids, wgts) for one path of ``win2d_contract``:
+
+    - ``d48``: D = 48, the float4 path, 16 taps;
+    - ``d6``: D = 6, the scalar path;
+    - ``d4``: D = 4, one float4 a query: 256 queries a block, so 16 taps
+      take two chunks of the block's tap table;
+    - ``misaligned``: windows one element off 16-byte alignment, the scalar
+      path at D = 16;
+    - ``wide``: C = 300 queries of D = 96, C*D*4 = 115 KB, above the 100 KB
+      that a shared-memory accumulator of the block could hold, with
+      K = 40 taps;
+    - ``outside``: ids outside [0, Wd) with nonzero weight, K = 5, and a
+      C (37) that leaves the last block ragged.
+    """
+    rng = np.random.default_rng(17)
+    NB, BH = 2, 3
+    C, D, K, widths = {"d48": (64, 48, 16, (100, 64)),
+                       "d6": (50, 6, 16, (90, 64)),
+                       "d4": (70, 4, 16, (128, 40)),
+                       "misaligned": (40, 16, 16, (96, 33)),
+                       "wide": (300, 96, 40, (200,)),
+                       "outside": (37, 8, 5, (100, 300))}[case]
+    wins, ids, wgts = [], [], []
+    for Wd in widths:
+        w = torch.from_numpy(rng.standard_normal((NB, BH, Wd, D))
+                             .astype(np.float32)).to(device)
+        i = rng.integers(0, Wd, (NB, BH, C, K))
+        if case == "outside":
+            i[..., 0] = -1 - rng.integers(0, 40, (NB, BH, C))
+            i[..., 1] = Wd + rng.integers(0, 40, (NB, BH, C))
+            i[..., 2] = 10 ** 6
+        g = rng.uniform(0, 1, (NB, BH, C, K))
+        wins.append(_misaligned(w) if case == "misaligned" else w)
+        ids.append(torch.from_numpy(i.astype(np.int32)).to(device))
+        wgts.append(torch.from_numpy(g.astype(np.float32)).to(device))
+    return wins, ids, wgts
+
+
+@pytest.mark.parametrize("case", ["d48", "d6", "d4", "misaligned", "wide",
+                                  "outside"])
+def test_win2d_contract_paths_match_plain(cuda, case):
+    """``win2d_contract`` on every path it chooses from the sizes, against
+    its plain version within 1e-5 of the output's largest value."""
+    wins, ids, wgts = _contract_case(case, cuda)
+    before = win2d.win2d_contract.launches
+    got = win2d.win2d_contract(wins, ids, wgts)
+    assert win2d.win2d_contract.launches == before + 1
+    want = win2d.win2d_contract_torch(wins, ids, wgts)
+    torch.cuda.synchronize()
+    tol = 1e-5 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol
+
+
+def _hier_case(case, device):
+    """(winsT, idsT, wgtsT) for one path of ``hier_gather``:
+
+    - ``k5``: 5 taps per query and level (K < 16), D = 16;
+    - ``one_tile``: every tap of every query in one 32-column tile (16
+      shuffle rounds there, none elsewhere), D = 48;
+    - ``outside``: ids outside [0, Wd) with nonzero weight: negative, past
+      Wd inside the last (partial) tile, far beyond; D = 20 (a masked
+      last channel chunk);
+    - ``padded``: C = 70 queries padded to Cp = 128 with weight 0, D = 48.
+    """
+    rng = np.random.default_rng(13)
+    NB, BH, C, Cp = 2, 3, 64, 64
+    D, K, widths = {"k5": (16, 5, (100, 64)), "one_tile": (48, 16, (256,)),
+                    "outside": (20, 16, (100, 300)),
+                    "padded": (48, 16, (96, 200))}[case]
+    if case == "padded":
+        C, Cp = 70, 128
+    winsT, idsT, wgtsT = [], [], []
+    for Wd in widths:
+        w = rng.standard_normal((NB, BH, D, Wd))
+        i = rng.integers(0, Wd, (NB, BH, K, Cp))
+        g = rng.uniform(0, 1, (NB, BH, K, Cp))
+        if case == "one_tile":
+            i = rng.integers(64, 96, (NB, BH, K, Cp))
+        if case == "outside":
+            i[..., 0, :] = -1 - rng.integers(0, 40, (NB, BH, Cp))
+            i[..., 1, :] = Wd + rng.integers(0, 32 - Wd % 32, (NB, BH, Cp))
+            i[..., 2, :] = 10 ** 6
+        g[..., C:] = 0.0
+        i[..., C:] = 0
+        winsT.append(torch.from_numpy(w.astype(np.float32)).to(device))
+        idsT.append(torch.from_numpy(i.astype(np.int32)).to(device))
+        wgtsT.append(torch.from_numpy(g.astype(np.float32)).to(device))
+    return winsT, idsT, wgtsT
+
+
+@pytest.mark.parametrize("case", ["k5", "one_tile", "outside", "padded"])
+def test_hier_gather_paths_match_plain(cuda, case):
+    """``hier_gather`` against its plain version within 1e-5 of the
+    output's largest value; padded queries come out 0."""
+    winsT, idsT, wgtsT = _hier_case(case, cuda)
+    before = win2d.hier_gather.launches
+    got = win2d.hier_gather(winsT, idsT, wgtsT)
+    assert win2d.hier_gather.launches == before + 1
+    want = win2d.hier_gather_torch(winsT, idsT, wgtsT)
+    torch.cuda.synchronize()
+    tol = 1e-5 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol
+    if case == "padded":
+        assert got[..., 70:].abs().max().item() == 0.0
+
+
 def test_win2d_contract_and_hier_gather_match_plain(cuda):
     """Both contractions against the gather-and-sum of their definition,
     within 1e-5 of the output's largest value."""
@@ -375,8 +526,11 @@ def test_lane_chain_matches_plain_bitwise(cuda, name):
 
 
 def test_new_kernel_wrappers_reject_bad_inputs(cuda):
-    """CPU tensors and types the kernels do not take raise; nothing falls
-    back to a plain version."""
+    """CPU tensors, types and sizes the kernels do not take raise (a
+    ``win2d_sample`` block beyond its shared memory, ``hier_gather`` with
+    K > 16 or Cp not a multiple of 32; ``win2d_contract`` has no size limit
+    now, test_win2d_contract_paths_match_plain[wide]); nothing falls back
+    to a plain version."""
     value, loc, attn = _grid_inputs(cuda, torch.float32)
     blocks, wins = windowed2d_plan(GRID_SHAPES, 6, 8, 5)
     taps = win2d.segment_taps(GRID_SHAPES, loc[:, :GRID_SIZES[0]],
@@ -393,6 +547,15 @@ def test_new_kernel_wrappers_reject_bad_inputs(cuda):
         win2d.win2d_contract_cuda([fx[0][0].cpu()], fx[2], fx[4])
     with pytest.raises(TypeError):
         win2d.hier_gather(fx[1], [fx[3][0].long()], fx[5])
+    wide, _, _ = _grid_inputs(cuda, torch.float32, D=600)
+    with pytest.raises(ValueError, match="shared memory"):
+        win2d.win2d_sample_cuda(wide, GRID_SHAPES, taps)
+    many = _fixture(1, 32, (64,), BH=1, D=8, n_taps=17, device=cuda)
+    with pytest.raises(ValueError, match="K <= 16"):
+        win2d.hier_gather_cuda(many[1], many[3], many[5])
+    odd = [t[..., :40].contiguous() for t in fx[3] + fx[5]]
+    with pytest.raises(ValueError, match="multiple of 32"):
+        win2d.hier_gather_cuda(fx[1], odd[:1], odd[1:])
     x = torch.zeros(2, 128, device=cuda)
     idx = torch.zeros(2, 128, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):

@@ -55,11 +55,22 @@ def test_port_imports_no_jax_module():
     for name in ("cli.train", "train.step", "train.engine", "losses.criterion",
                  "matching.matcher", "data.loader", "eval.metrics",
                  "ops.win2d", "ops.lane_chain", "scripts.probe",
-                 "scripts.lanegather_probe"):
+                 "scripts.lanegather_probe", "scripts.win2d_ab"):
         assert f"snipper_tpu_torch.{name}" in res["imported"], name
     leaked = [m for m in res["modules"]
               if m.split(".")[0] in FORBIDDEN]
     assert not leaked, leaked
+
+
+def test_port_never_calls_embedding_bag():
+    """``embedding_bag`` is chip_smoke.py's yardstick of the windowed
+    kernels, never a path of the port: no source of the port (Python or
+    CUDA) names it."""
+    files = sorted(p for p in (REPO / "snipper_tpu_torch").rglob("*")
+                   if p.suffix in (".py", ".cu", ".cuh"))
+    assert any(p.suffix == ".cu" for p in files)
+    for path in files:
+        assert "embedding_bag" not in path.read_text(), path
 
 
 def test_port_sources_import_no_jax():
