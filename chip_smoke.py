@@ -37,8 +37,10 @@ result):
    ``win2d_contract`` and ``hier_gather`` at the four kernel-only
    fixtures, ``chain_gather`` and ``chain_select`` bitwise; time each
    kernel alone (per call and device time) beside its plain version and
-   its bound, and K2, K4 and K5 beside one ``embedding_bag`` call that
-   computes their function (checked against the plain version).
+   its bound, K2, K4 and K5 beside one ``embedding_bag`` call that
+   computes their function (checked against the plain version), and K3
+   beside the time its shuffles or instructions take at the SM clock that
+   ``nvidia-smi`` reads while it runs.
 8. Drive the probe path: ``snipper_tpu_torch.scripts.probe op`` (all six
    impls) and ``probe lanegather`` through ``main``, counts set to 0 just
    before each and read just after; check the exit code, that no line
@@ -181,6 +183,30 @@ def device_ms(fn, kernel, reps=10):
     us = sum(e.self_device_time_total for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA and kernel in e.key)
     return us / 1e3 / reps
+
+
+def sm_clock_mhz(fn, seconds=1.5):
+    """The SM clock (MHz) that ``nvidia-smi`` reads every 100 ms while
+    ``fn`` runs back to back for about ``seconds``: the median reading."""
+    import torch
+
+    proc = subprocess.Popen(
+        ["nvidia-smi", "-i", str(torch.cuda.current_device()),
+         "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+         "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+        text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+    readings = [float(v) for v in out.split() if re.fullmatch(r"[\d.]+", v)]
+    check(readings, "nvidia-smi read no SM clock")
+    return statistics.median(readings)
 
 
 def set_tf32(enabled):
@@ -612,7 +638,7 @@ def phase_windowed_kernels():
             row["ms"] = time_ms(lambda: [win2d.win2d_sample_cuda(
                 value, shapes, t) for t in taps])
             row["device_ms"] = device_ms(lambda: [win2d.win2d_sample_cuda(
-                value, shapes, t) for t in taps], "win2d_kernel")
+                value, shapes, t) for t in taps], "win2d_sample_kernel")
             # the yardstick, with the weights in the value's dtype, as
             # embedding_bag takes them (JAX rounds them to bf16 too)
             table, bags, wts = sample_bag_args(value, shapes, taps)
@@ -713,11 +739,18 @@ def phase_windowed_kernels():
     idx = torch.randint(0, 128, (64, 512, 128), device="cuda", generator=g,
                         dtype=torch.int32)
     n = 64
-    for name, fn, plain, ops_per_elem in (
+    warp_steps = x.numel() // 128 * n
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    for name, fn, plain, ops_per_elem, issue in (
             ("chain_gather", lane_chain.chain_gather_cuda,
-             lane_chain.chain_gather_torch, 1),
+             lane_chain.chain_gather_torch, 1,
+             # 16 warp shuffles a step, one a clock per SM
+             (16 * warp_steps, 1, "warp shuffles")),
             ("chain_select", lane_chain.chain_select_cuda,
-             lane_chain.chain_select_torch, 3)):
+             lane_chain.chain_select_torch, 3,
+             # compare, select, add on 4 registers: 12 warp instructions a
+             # step, 4 issued a clock per SM
+             (12 * warp_steps, 4, "warp instructions"))):
         got = fn(x, idx, n)
         want = plain(x, idx, n)
         check(torch.equal(got, want), f"{name}: not bitwise equal to the "
@@ -726,18 +759,25 @@ def phase_windowed_kernels():
         nbytes = 3 * x.numel() * 4
         ops = ops_per_elem * n * x.numel()
         bound, by = _bound(nbytes, ops)
+        mhz = sm_clock_mhz(lambda: fn(x, idx, n))
+        count, per_clock, what = issue
         row = dict(max_abs_err=0.0, tol=0.0, ms=time_ms(lambda: fn(x, idx, n)),
+                   device_ms=device_ms(lambda: fn(x, idx, n), f"{name}_kernel"),
                    plain_ms=time_ms(lambda: plain(x, idx, n)),
                    bound_ms=bound, bound_by=by, bytes=nbytes, ops=ops,
-                   ns_per_elem=None)
+                   issue_count=count, issue_what=what, sm_clock_mhz=mhz,
+                   issue_ms=count / (sms * per_clock * mhz * 1e6) * 1e3)
         row["ns_per_elem"] = row["ms"] * 1e6 / (x.numel() * n)
         res[name]["64x[512,128] n=64"] = row
         log(f"{name} 64x[512,128] n={n}: bitwise equal to the plain chain; "
-            f"kernel {row['ms']:.4f} ms ({row['ns_per_elem']:.5f} ns/elem), "
-            f"plain {row['plain_ms']:.4f} ms; bound {bound * 1e3:.2f} us by "
-            f"{by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G ops); no single"
-            f" PyTorch call computes a chained in-row gather (library_ms "
-            f"null)")
+            f"kernel {row['ms']:.4f} ms ({row['ns_per_elem']:.5f} ns/elem; "
+            f"device time alone {row['device_ms']:.4f} ms), plain "
+            f"{row['plain_ms']:.4f} ms; bound {bound * 1e3:.2f} us by {by} "
+            f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G ops); issue "
+            f"arithmetic {count / 1e6:.1f} M {what} over {sms} SMs at "
+            f"{per_clock} a clock and {mhz:.0f} MHz: "
+            f"{row['issue_ms']:.4f} ms; no single PyTorch call computes "
+            f"the chain (library_ms null)")
     del x, idx
     torch.cuda.empty_cache()
     return res
@@ -1327,7 +1367,7 @@ def main() -> int:
               "launches, one per query segment): B=4 S=9875 H=8 D=48 L=3 "
               "P=4, block 8x20, margin 5",
         "ptxas": {k: v for k, v in ptxas["win2d"].items()
-                  if "win2d_kernel" in k},
+                  if "win2d_sample_kernel" in k},
         "shapes": k2,
     })
     for name, replaces in (("win2d_contract", "scripts/lanegather_probe.py:217"),
@@ -1350,19 +1390,20 @@ def main() -> int:
             "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"],
             "library_ms": head.get("library_ms"),
-            "library": "null: a chain of 64 dependent gathers is no one "
+            "library": "null: a chain of 64 dependent steps is no one "
                        "PyTorch call" if chain else
                        "embedding_bag(mode='sum') over one table of every "
                        "level's windows, bags in K5's [NB, BH, C] order",
             "at": list(rows)[-1],
             "shapes": rows,
         })
-        if not chain:
-            kernel = {"hier_gather": "hier_gather_kernel",
-                      "win2d_contract": "win2d_contract_kernel"}[name]
-            kernels[-1]["device_ms"] = head["device_ms"]
-            kernels[-1]["ptxas"] = {k: v for k, v in ptxas["win2d"].items()
-                                    if kernel in k}
+        kernels[-1]["device_ms"] = head["device_ms"]
+        kernels[-1]["ptxas"] = {
+            k: v for k, v in ptxas["lane_chain" if chain else "win2d"].items()
+            if f"{name}_kernel" in k}
+        if chain:
+            kernels[-1]["issue_ms"] = head["issue_ms"]
+            kernels[-1]["sm_clock_mhz"] = head["sm_clock_mhz"]
     log(f"card: {card}; inference path "
         f"{main_res['steady_snippets_per_s']:.3f} snippets/s; training "
         f"path {train_res['step_ms']:.2f} ms/step, "

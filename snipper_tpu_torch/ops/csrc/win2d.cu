@@ -4,9 +4,9 @@
 // win2d_sample replaces `_win2d_segment` + `_win2d_kernel_factory`
 // (snipper_tpu/ops/pallas_deform.py:186-337), driven per query segment by
 // `ms_deform_attn_windowed2d_pallas` (:340). For one 2D query block and one
-// (batch, head) it stages, level by level, the (wy, wx) window of the level
-// at the block's anchor and contracts the point-merged taps of each query
-// against it:
+// (batch, head) the TPU stages, level by level, the (wy, wx) window of the
+// level at the block's anchor and contracts the point-merged taps of each
+// query against it:
 //
 //   out[b, q, h*D + d] = sum_l sum_k wgt[l][nb, bh, c, k]
 //                                    * win_l[ids[l][nb, bh, c, k], d]
@@ -55,12 +55,20 @@
 //   the DC columns and sums, at most 128 a thread, so two blocks share an
 //   SM: taps kept in registers instead (165 registers, one block) ran
 //   1.5x slower (PERF.md).
-// - win2d_sample (the first version, not redesigned yet): one block per
-//   (query block, b*h) stages each level's window into dynamic shared
-//   memory a tile of rows at a time, whether or not every row is touched,
-//   and each thread accumulates its (query, channel) outputs over the taps
-//   whose id falls in the tile, re-reading the query's taps for every
-//   tile, in an f32 sum held in shared memory.
+// - win2d_sample is win2d_contract's design on the value itself: a group
+//   of threads per (query, b*h) over 16-byte vectors (8 bf16 or 4 f32
+//   channels), queries flattened over (nb, bh, c) so that neighbouring
+//   groups share a window. Per block, one thread per (level, query) works
+//   out the value row of the query's window origin from its own anchor (a
+//   block may straddle two (nb, bh)); the block then reads each tap's id
+//   and weight once, over all levels, into the shared table, where the tap
+//   becomes the global row base + ((id / wx) * w + id % wx) * H, or -1 for
+//   weight 0 or the pad id wy*wx. Nothing is staged: only the rows the taps
+//   name are read, through L1/L2 (the whole bf16 value of the probe, 30
+//   MB, fits the 50 MB L2), the f32 weights are kept, the sum is kept in
+//   f32 registers and rounded once to the value's dtype as it is written.
+//   Nothing bounds C or D; a scalar path takes a D that is no multiple of
+//   the vector, or an unaligned value or output.
 //
 // What bounds them: memory. The least bytes are the ids and weights (8 bytes
 // a tap), the window rows the taps touch, and the output; the contraction is
@@ -69,7 +77,8 @@
 // the windows (0.41 ms at 3.35 TB/s); win2d_sample at the encoder fixture
 // about 0.19 GB in bf16 (0.057 ms), two thirds of it ids and weights. On top
 // of that win2d_contract reads 3.0 GB of rows through L1/L2 at that fixture,
-// and hier_gather retires one warp shuffle per round and channel.
+// win2d_sample 1.67 GB (17.4 M taps of 96 bytes in bf16), and hier_gather
+// retires one warp shuffle per round and channel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,11 +87,7 @@
 #include "msda_common.cuh"
 
 #define W2D_MAX_LEVELS 8
-#define W2D_THREADS 256
-// win2d_sample's dynamic shared memory: the f32 accumulator [C, D] plus one
-// tile of window rows; two blocks fit on one SM
-#define W2D_SMEM_BUDGET (100 * 1024)
-// win2d_contract's per-block tap table: 16 KB
+// win2d_sample's and win2d_contract's per-block tap table: 16 KB
 #define W2C_TABLE 2048
 #define HG_MAX_TAPS 16
 #define HG_THREADS 256
@@ -93,93 +98,148 @@ struct WinLevels {
   const float* wgts[W2D_MAX_LEVELS];  // [NB, BH, C, K]
   int rows[W2D_MAX_LEVELS];           // window rows: wy * wx, or Wd
   int wx[W2D_MAX_LEVELS];             // window width (sample)
-  int64_t h[W2D_MAX_LEVELS], w[W2D_MAX_LEVELS], start[W2D_MAX_LEVELS];
+  int w[W2D_MAX_LEVELS];              // level width (sample)
+  int start[W2D_MAX_LEVELS];          // level's first pixel (sample)
 };
 
 struct Segment {  // win2d_sample: the query segment's pixel grid and blocks
   int hs, ws, bh, bw, nbx;
 };
 
+// One tap of a block's table: the row its id names (a window row for K5,
+// a row of the value [B*S*H, D] for K2), or -1 for a tap that adds
+// nothing, and its weight. One 8-byte shared load.
+struct __align__(8) WinTap {
+  int row;
+  float w;
+};
+
+// acc[k] += w * (vector j + (v0 + k) * g of the tap's row) over the
+// group's taps tt[0, nt) that name a row of ``rows`` (D elements a row);
+// a tap of row -1 adds nothing.
+template <typename T, int VEC, int KV, typename idx_t>
+__device__ __forceinline__ void add_taps(float (&acc)[KV][VEC],
+                                         const WinTap* tt, int nt,
+                                         const T* __restrict__ rows, int D,
+                                         int j, int v0, const Plan& pl) {
+#pragma unroll 4
+  for (int s = 0; s < nt; ++s) {
+    const WinTap tp = tt[s];
+    if (tp.row < 0) continue;
+    const T* row = rows + (idx_t)tp.row * D;
+#pragma unroll
+    for (int k = 0; k < KV; ++k) {
+      const int vi = j + (v0 + k) * pl.g;
+      if (vi >= pl.nv) break;
+      float v[VEC];
+      VecIO<T, VEC>::load(row + vi * VEC, v);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[k][e] += tp.w * v[e];
+    }
+  }
+}
+
+// Write one pass's sums, rounded once to T, to the query's row o.
+template <typename T, int VEC, int KV>
+__device__ __forceinline__ void store_pass(T* o, float (&acc)[KV][VEC],
+                                           int j, int v0, const Plan& pl) {
+#pragma unroll
+  for (int k = 0; k < KV; ++k) {
+    const int vi = j + (v0 + k) * pl.g;
+    if (vi >= pl.nv) break;
+    VecIO<T, VEC>::store(o + vi * VEC, acc[k]);
+  }
+}
+
 // ---------------------------------------------------------------- K2
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// acc[c, d] += sum over taps k of query c whose id lies in [r0, r0 + n):
-// wgt[c, k] * tile[id - r0, d]. Each thread owns the same (c, d) entries in
-// every call, so acc needs no synchronisation.
-template <typename T>
-__device__ __forceinline__ void contract_tile(const T* tile, int r0, int n,
-                                              const int* __restrict__ ids,
-                                              const float* __restrict__ wgts,
-                                              int C, int K, int D,
-                                              float* acc) {
-  for (int i = threadIdx.x; i < C * D; i += blockDim.x) {
-    const int c = i / D, d = i - c * D;
-    const int* id_c = ids + (int64_t)c * K;
-    const float* wg_c = wgts + (int64_t)c * K;
-    float s = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const int r = id_c[k] - r0;
-      const float wk = wg_c[k];
-      if (r >= 0 && r < n && wk != 0.f) s += wk * to_float(tile[r * D + d]);
-    }
-    acc[i] += s;
-  }
-}
-
-// One block per (nb, bh): stage windows from value [B, S, H, D] at the
-// anchors [L, NB, 2] (y_lo, x_lo) and write out [B, hs*ws, H*D].
-template <typename T>
-__global__ void __launch_bounds__(W2D_THREADS)
-win2d_kernel(const T* __restrict__ value, const int* __restrict__ anchors,
-             T* __restrict__ out, WinLevels lv, Segment sg, int L, int K,
-             int64_t S, int H, int D, int C, int NB, int BH, int tile_rows) {
-  extern __shared__ float smem[];
-  float* acc = smem;                          // [C, D]
-  T* tile = reinterpret_cast<T*>(smem + C * D);  // [tile_rows, D]
-  const int nb = blockIdx.x / BH, bh = blockIdx.x - nb * BH;
-  const int64_t blk = (int64_t)nb * BH + bh;
-  const int b = bh / H, hh = bh - b * H;
-  for (int i = threadIdx.x; i < C * D; i += blockDim.x) acc[i] = 0.f;
-
-  for (int l = 0; l < L; ++l) {
-    const int rows = lv.rows[l];
-    const int* ids = lv.ids[l] + blk * C * K;
-    const float* wgts = lv.wgts[l] + blk * C * K;
-    for (int r0 = 0; r0 < rows; r0 += tile_rows) {
-      const int n = min(tile_rows, rows - r0);
-      __syncthreads();  // the previous tile is consumed
-      const int y_lo = anchors[((int64_t)l * NB + nb) * 2];
-      const int x_lo = anchors[((int64_t)l * NB + nb) * 2 + 1];
-      const int wx = lv.wx[l];
-      const int64_t hl = lv.h[l], wl = lv.w[l];
-      const T* vb = value + ((int64_t)b * S + lv.start[l]) * H * D
-                    + (int64_t)hh * D;
-      for (int j = threadIdx.x; j < n * D; j += blockDim.x) {
-        const int r = r0 + j / D, d = j - (j / D) * D;
-        const int64_t y = y_lo + r / wx, x = x_lo + r % wx;
-        tile[j] = (y < hl && x < wl) ? vb[(y * wl + x) * H * D + d]
-                                     : static_cast<T>(0.f);
+// Fill the block's table for taps [t0, t0 + tc) of each group's query, the
+// taps t = l * K + k running over the levels l: slot s holds tap
+// t0 + s % tc of the block's query q0 + s / tc. `base[l][g]` is the value
+// row of query q0 + g's window origin on level l (-1 past the last query),
+// so a tap pays one division, by the window's width.
+__device__ __forceinline__ void fill_sample_taps(
+    WinTap* table, int (*base)[MSDA_THREADS], const Plan& pl, int t0,
+    int LK, int K, int64_t q0, int H, const WinLevels& lv, int rows_total) {
+  for (int s = threadIdx.x; s < pl.qb * pl.tc; s += blockDim.x) {
+    const int sg = s / pl.tc, t = t0 + s - sg * pl.tc;
+    WinTap tp = {-1, 0.f};
+    if (t < LK) {
+      const int l = t / K, k = t - l * K;
+      const int bs = base[l][sg];
+      if (bs >= 0) {
+        const int64_t i = (q0 + sg) * K + k;  // [NB, BH, C, K] flat
+        const int id = __ldg(lv.ids[l] + i);
+        const float w = __ldg(lv.wgts[l] + i);
+        if (w != 0.f && id >= 0 && id < lv.rows[l]) {
+          const int yy = id / lv.wx[l];
+          const int row = bs + (yy * lv.w[l] + id - yy * lv.wx[l]) * H;
+          if ((unsigned)row < (unsigned)rows_total) tp = WinTap{row, w};
+        }
       }
-      __syncthreads();
-      contract_tile(tile, r0, n, ids, wgts, C, K, D, acc);
     }
+    table[s] = tp;
   }
+}
 
-  for (int i = threadIdx.x; i < C * D; i += blockDim.x) {
-    const int c = i / D, d = i - c * D;
+// Queries are flattened over (nb, bh, c), C to a (nb, bh): group gi of
+// block x takes query q = x * qb + gi, pixel c of query block nb for
+// (b, hh) = bh. A block may straddle two (nb, bh), so each query finds its
+// own anchor. value [B, S, H, D], anchors [L, NB, 2] (y_lo, x_lo), out
+// [B, hs*ws, H*D], written once per query inside the segment.
+template <typename T, int VEC, typename idx_t>
+__global__ void __launch_bounds__(MSDA_THREADS)
+win2d_sample_kernel(const T* __restrict__ value,
+                    const int* __restrict__ anchors, T* __restrict__ out,
+                    WinLevels lv, Segment sg, int L, int K, int S, int H,
+                    int D, int C, int NB, int BH, int64_t Q, Plan pl) {
+  constexpr int KV = VEC == 1 ? 4 : 1;  // vectors per thread in one pass
+  __shared__ WinTap table[W2C_TABLE];
+  __shared__ int base[W2D_MAX_LEVELS][MSDA_THREADS];
+  const int64_t q0 = (int64_t)blockIdx.x * pl.qb;
+  for (int s = threadIdx.x; s < L * pl.qb; s += blockDim.x) {
+    const int l = s / pl.qb, g = s - l * pl.qb;
+    const int64_t q = q0 + g;
+    int bs = -1;
+    if (q < Q) {
+      const int blk = (int)(q / C), nb = blk / BH, bh = blk - nb * BH;
+      const int b = bh / H, hh = bh - b * H;
+      const int* an = anchors + ((int64_t)l * NB + nb) * 2;
+      bs = ((b * S + lv.start[l] + an[0] * lv.w[l] + an[1]) * H
+            + hh);
+    }
+    base[l][g] = bs;
+  }
+  const int gi = threadIdx.x / pl.g, j = threadIdx.x - gi * pl.g;
+  const int64_t q = q0 + gi;
+  bool active = gi < pl.qb && q < Q;
+  idx_t o = 0;  // the query's first output element
+  if (active) {
+    const int blk = (int)(q / C), c = (int)(q - (int64_t)blk * C);
+    const int nb = blk / BH, bh = blk - nb * BH;
+    const int b = bh / H, hh = bh - b * H;
     const int y = (nb / sg.nbx) * sg.bh + c / sg.bw;
     const int x = (nb % sg.nbx) * sg.bw + c % sg.bw;
-    if (y < sg.hs && x < sg.ws)
-      store(out + (((int64_t)b * sg.hs * sg.ws + y * sg.ws + x) * H + hh) * D
-                + d,
-            acc[i]);
+    o = (((idx_t)b * sg.hs * sg.ws + y * sg.ws + x) * H + hh) * D;
+    active = y < sg.hs && x < sg.ws;  // a padded query writes nothing
+  }
+  const int LK = L * K, rows_total = BH / H * S * H;  // value rows
+  // passes over the thread's vectors; one pass wherever D <= 32 * VEC * KV
+  for (int v0 = 0; v0 < pl.vpl; v0 += KV) {
+    float acc[KV][VEC];
+#pragma unroll
+    for (int k = 0; k < KV; ++k)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[k][e] = 0.f;
+    for (int t0 = 0; t0 < LK; t0 += pl.tc) {
+      __syncthreads();  // base is written; the previous chunk is consumed
+      fill_sample_taps(table, base, pl, t0, LK, K, q0, H, lv, rows_total);
+      __syncthreads();
+      if (active)
+        add_taps<T, VEC, KV, idx_t>(acc, table + gi * pl.tc,
+                                    min(pl.tc, LK - t0), value, D, j, v0,
+                                    pl);
+    }
+    if (active) store_pass(out + o, acc, j, v0, pl);
   }
 }
 
@@ -189,48 +249,59 @@ static int launch_win2d(const void* value, const void* anchors, void* out,
                         const int64_t* table, int L, int K, int64_t S, int H,
                         int D, int C, int NB, int BH, const int* seg,
                         void* stream) {
-  if (L < 1 || L > W2D_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  if (L < 1 || L > W2D_MAX_LEVELS || K < 1 || D < 1 || C < 1 || H < 1 ||
+      BH % H)
+    return (int)cudaErrorInvalidValue;
+  constexpr int VEC = 16 / sizeof(T);
   WinLevels lv = {};
-  int max_rows = 0;
   for (int l = 0; l < L; ++l) {
-    // table rows: (rows, wx, h, w, start)
+    // table rows: (rows, wx, h, w, start); h is not needed
     lv.ids[l] = static_cast<const int*>(ids[l]);
     lv.wgts[l] = static_cast<const float*>(wgts[l]);
     lv.rows[l] = (int)table[5 * l];
     lv.wx[l] = (int)table[5 * l + 1];
-    lv.h[l] = table[5 * l + 2];
-    lv.w[l] = table[5 * l + 3];
-    lv.start[l] = table[5 * l + 4];
-    if (lv.rows[l] > max_rows) max_rows = lv.rows[l];
+    lv.w[l] = (int)table[5 * l + 3];
+    lv.start[l] = (int)table[5 * l + 4];
+    if (lv.wx[l] < 1) return (int)cudaErrorInvalidValue;
   }
   const Segment sg = {seg[0], seg[1], seg[2], seg[3],
                       (seg[1] + seg[3] - 1) / seg[3]};
-  const int64_t acc_bytes = (int64_t)C * D * sizeof(float);
-  const int64_t row_bytes = (int64_t)D * sizeof(T);
-  int64_t tile_rows = (W2D_SMEM_BUDGET - acc_bytes) / row_bytes;
-  if (tile_rows > max_rows) tile_rows = max_rows;
-  if (tile_rows < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(acc_bytes + tile_rows * row_bytes);
-  auto kernel = win2d_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t blocks = (int64_t)NB * BH;
-  if (blocks == 0) return (int)cudaSuccess;
-  kernel<<<(unsigned)blocks, W2D_THREADS, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(value), static_cast<const int*>(anchors),
-      static_cast<T*>(out), lv, sg, L, K, S, H, D, C, NB, BH, (int)tile_rows);
+  const int64_t Q = (int64_t)NB * BH * C;
+  const int64_t B = BH / H;
+  const int64_t lim = (int64_t)1 << 31;
+  // value rows and query counts in int32; element offsets in int32 where
+  // the value and the output allow
+  if (B * S * H >= lim || Q >= lim) return (int)cudaErrorInvalidValue;
+  const bool vec = D % VEC == 0 && aligned(value, 16) && aligned(out, 16);
+  const bool i32 = B * S * H * D < lim
+                   && B * sg.hs * sg.ws * H * D < lim;
+  if (Q == 0) return (int)cudaSuccess;
+  Plan pl = make_plan(D, vec ? VEC : 1, K, Q);
+  pl.tc = L * K < W2C_TABLE / pl.qb ? L * K : W2C_TABLE / pl.qb;
+  const int64_t blocks = (Q + pl.qb - 1) / pl.qb;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const T* v = static_cast<const T*>(value);
+  const int* an = static_cast<const int*>(anchors);
+  T* o = static_cast<T*>(out);
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid((unsigned)blocks);
+  const int s32 = (int)S;
+  if (vec && i32)
+    win2d_sample_kernel<T, VEC, int><<<grid, MSDA_THREADS, 0, st>>>(
+        v, an, o, lv, sg, L, K, s32, H, D, C, NB, BH, Q, pl);
+  else if (vec)
+    win2d_sample_kernel<T, VEC, int64_t><<<grid, MSDA_THREADS, 0, st>>>(
+        v, an, o, lv, sg, L, K, s32, H, D, C, NB, BH, Q, pl);
+  else if (i32)
+    win2d_sample_kernel<T, 1, int><<<grid, MSDA_THREADS, 0, st>>>(
+        v, an, o, lv, sg, L, K, s32, H, D, C, NB, BH, Q, pl);
+  else
+    win2d_sample_kernel<T, 1, int64_t><<<grid, MSDA_THREADS, 0, st>>>(
+        v, an, o, lv, sg, L, K, s32, H, D, C, NB, BH, Q, pl);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- K5
-// One tap of win2d_contract's table: the window row its id names, or -1
-// for a tap that adds nothing, and its weight. One 8-byte shared load.
-struct __align__(8) WinTap {
-  int row;
-  float w;
-};
-
 // Fill the block's table for taps [k0, k0 + tc) of level l of each group's
 // query: slot s holds tap k0 + s % tc of the block's query q0 + s / tc.
 __device__ __forceinline__ void fill_win_taps(WinTap* table, const Plan& pl,
@@ -280,35 +351,13 @@ win2d_contract_kernel(float* __restrict__ out, WinLevels lv, int L, int K,
         __syncthreads();
         fill_win_taps(table, pl, k0, K, q0, Q, Wd, lv.ids[l], lv.wgts[l]);
         __syncthreads();
-        if (!active) continue;
-        const WinTap* tt = table + gi * pl.tc;
-        const int nt = min(pl.tc, K - k0);
-#pragma unroll 4
-        for (int s = 0; s < nt; ++s) {
-          const WinTap tp = tt[s];
-          if (tp.row < 0) continue;
-          const float* row = win + (idx_t)tp.row * D;
-#pragma unroll
-          for (int k = 0; k < KV; ++k) {
-            const int vi = j + (v0 + k) * pl.g;
-            if (vi >= pl.nv) break;
-            float v[VEC];
-            VecIO<float, VEC>::load(row + vi * VEC, v);
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) acc[k][e] += tp.w * v[e];
-          }
-        }
+        if (active)
+          add_taps<float, VEC, KV, idx_t>(acc, table + gi * pl.tc,
+                                          min(pl.tc, K - k0), win, D, j, v0,
+                                          pl);
       }
     }
-    if (active) {
-      float* o = out + (idx_t)q * D;
-#pragma unroll
-      for (int k = 0; k < KV; ++k) {
-        const int vi = j + (v0 + k) * pl.g;
-        if (vi >= pl.nv) break;
-        VecIO<float, VEC>::store(o + vi * VEC, acc[k]);
-      }
-    }
+    if (active) store_pass(out + (idx_t)q * D, acc, j, v0, pl);
   }
 }
 

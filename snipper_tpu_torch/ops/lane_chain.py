@@ -18,6 +18,10 @@ import functools
 import torch
 
 ROW = 128  # the row width, the TPU's lane count
+# x, idx, out, rows, n, stream
+_SIGNATURES = {name: [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int,
+                                              ctypes.c_void_p]
+               for name in ("chain_gather_f32", "chain_select_f32")}
 
 
 @functools.lru_cache(maxsize=None)
@@ -26,10 +30,9 @@ def _lib() -> ctypes.CDLL:
     from snipper_tpu_torch.ops import _build
 
     lib = _build.load("lane_chain.cu", "liblane_chain.so")
-    for name in ("chain_gather_f32", "chain_select_f32"):
+    for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int,
-                                               ctypes.c_void_p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
 
@@ -83,8 +86,8 @@ def _launch(name: str, x: torch.Tensor, idx: torch.Tensor,
 
 def chain_gather_cuda(x: torch.Tensor, idx: torch.Tensor,
                       n: int) -> torch.Tensor:
-    """Launch ``chain_gather``: one warp per row, a shuffle gather per
-    step."""
+    """Launch ``chain_gather``: one warp per row on a resident grid, 16
+    warp shuffles per step."""
     out = _launch("chain_gather", x, idx, n)
     chain_gather.launches += 1
     return out
@@ -92,8 +95,8 @@ def chain_gather_cuda(x: torch.Tensor, idx: torch.Tensor,
 
 def chain_select_cuda(x: torch.Tensor, idx: torch.Tensor,
                       n: int) -> torch.Tensor:
-    """Launch ``chain_select``: one warp per row, compare + select + add
-    per step."""
+    """Launch ``chain_select``: one warp per row on a resident grid,
+    compare + select + add per element and step."""
     out = _launch("chain_select", x, idx, n)
     chain_select.launches += 1
     return out

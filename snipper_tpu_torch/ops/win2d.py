@@ -37,8 +37,7 @@ from snipper_tpu_torch.ops.deform_attn import (corner_taps, gather_taps,
 
 MAX_LEVELS = 8      # W2D_MAX_LEVELS in win2d.cu
 MAX_TAPS = 16       # HG_MAX_TAPS: hier_gather's taps per query and level
-# W2D_SMEM_BUDGET: win2d_sample's accumulator and one window tile
-SMEM_BUDGET = 100 * 1024
+INT32_LIMIT = 2 ** 31  # win2d_sample's value rows and queries are int32
 
 _vp, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
@@ -246,8 +245,9 @@ def win2d_sample_torch(value: torch.Tensor,
 def win2d_sample_cuda(value: torch.Tensor,
                       spatial_shapes: Sequence[Tuple[int, int]],
                       taps: SegmentTaps) -> torch.Tensor:
-    """Launch ``win2d_sample`` on the current stream: one block per (query
-    block, b*h). Raises on anything the kernel does not take."""
+    """Launch ``win2d_sample`` on the current stream: a group of threads
+    per (query, b*h), any block size C and any D. Raises on anything the
+    kernel does not take."""
     B, S, H, D = value.shape
     L = len(spatial_shapes)
     NB, BH, C, K = taps.ids[0].shape
@@ -265,11 +265,10 @@ def win2d_sample_cuda(value: torch.Tensor,
         raise ValueError(f"win2d_sample: taps do not fit value "
                          f"{tuple(value.shape)} and blocks {taps.block} of "
                          f"{taps.seg_shape}")
-    esize = value.element_size()
-    if C * D * 4 + D * esize > SMEM_BUDGET:
-        raise ValueError(f"win2d_sample: a {C}-query block of {D} channels "
-                         f"exceeds the kernel's {SMEM_BUDGET} bytes of "
-                         f"shared memory")
+    if B * S * H >= INT32_LIMIT or NB * BH * C >= INT32_LIMIT:
+        raise ValueError(f"win2d_sample: {B * S * H} value rows or "
+                         f"{NB * BH * C} queries exceed the kernel's int32 "
+                         f"counts")
     f32, i32 = (torch.float32,), (torch.int32,)
     _check_cuda("win2d_sample", [value, taps.anchors, *taps.ids, *taps.wgts],
                 dev, [(torch.float32, torch.bfloat16), i32]

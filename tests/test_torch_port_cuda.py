@@ -348,9 +348,18 @@ def _misaligned(t):
     return view
 
 
+def _sample_plan_qb(D, value_dtype):
+    """Queries per block of ``win2d_sample``'s plan (``make_plan``): 256
+    threads over groups of min(vectors per row, 32) threads, 16-byte
+    vectors where D allows."""
+    vec = 16 // torch.empty((), dtype=value_dtype).element_size()
+    nv = D // vec if D % vec == 0 else D
+    return 256 // min(nv, 32)
+
+
 @pytest.mark.parametrize("value_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["ragged", "d6", "d12", "misaligned",
-                                  "many_taps"])
+                                  "many_taps", "wide", "straddle"])
 def test_win2d_sample_kernel_sizes_match_plain(cuda, case, value_dtype):
     """``win2d_sample`` at sizes beyond the probe's, against the plain
     windowed2d, with the tolerances of
@@ -360,14 +369,30 @@ def test_win2d_sample_kernel_sizes_match_plain(cuda, case, value_dtype):
       padded queries;
     - ``d6``, ``d12``: D = 6 and 12, no multiple of 16 bytes in bf16;
     - ``misaligned``: the value one element off 16-byte alignment;
-    - ``many_taps``: P = 6, 72 taps per query at D = 48.
+    - ``many_taps``: P = 6, 72 taps per query at D = 48;
+    - ``wide``: D = 600 at 6x8 blocks, C*D*4 = 115 KB, more than the 100 KB
+      of shared memory that the first version's [C, D] sum could take;
+    - ``straddle``: 5x9 blocks at D = 48, so C = 45 is no multiple of the
+      plan's queries per block and blocks of groups straddle two (nb, bh),
+      among them two query blocks with their own anchors.
     """
     D, P, block = {"ragged": (8, 2, (5, 7)), "d6": (6, 2, (6, 8)),
                    "d12": (12, 2, (6, 8)), "misaligned": (16, 2, (6, 8)),
-                   "many_taps": (48, 6, (6, 8))}[case]
+                   "many_taps": (48, 6, (6, 8)), "wide": (600, 2, (6, 8)),
+                   "straddle": (48, 2, (5, 9))}[case]
     value, loc, attn = _grid_inputs(cuda, value_dtype, D=D, P=P)
     if case == "misaligned":
         value = _misaligned(value)
+    C = block[0] * block[1]
+    if case == "wide":
+        assert C * D * 4 > 100 * 1024
+    if case == "straddle":
+        qb = _sample_plan_qb(D, value_dtype)
+        BH = value.shape[0] * value.shape[2]
+        assert C % qb != 0
+        # a block of groups holds the last query of (nb, bh) = (0, BH - 1)
+        # and the first of (1, 0)
+        assert (BH * C - 1) // qb == BH * C // qb
     kw = dict(block_h=block[0], block_w=block[1], margin_px=5)
     before = win2d.win2d_sample.launches
     got, got_ov = win2d.ms_deform_attn_windowed2d_kernel(
@@ -510,26 +535,54 @@ def test_win2d_contract_and_hier_gather_match_plain(cuda):
                                rtol=0, atol=1e-5 * want5.abs().max().item())
 
 
-@pytest.mark.parametrize("name", ["chain_gather", "chain_select"])
-def test_lane_chain_matches_plain_bitwise(cuda, name):
+def _chain_case(case, device):
+    """(x, idx, n) for one case of the lane chains:
+
+    - ``odd_n``: 3 x 40 rows, n = 9 (the select chain's odd tail);
+    - ``even_n``: the same rows, n = 10;
+    - ``n0``: n = 0, the rows copied;
+    - ``ragged_rows``: 129 rows, no multiple of the 8 warps of a block;
+    - ``one_register``: every id in [32, 64), all in one register of its
+      lane (four requests a lane for one register);
+    - ``one_lane``: every id names lane 7 of some register;
+    - ``resident``: 20,000 rows, more than the resident grid's warps, so
+      each warp walks several rows and prefetches the next.
+    """
     rng = np.random.default_rng(12)
-    x = torch.from_numpy(rng.standard_normal((3, 40, 128)).astype(
-        np.float32)).to(cuda)
-    idx = torch.from_numpy(rng.integers(0, 128, (3, 40, 128)).astype(
-        np.int32)).to(cuda)
+    rows, n, lo, hi = {"odd_n": ((3, 40), 9, 0, 128),
+                       "even_n": ((3, 40), 10, 0, 128),
+                       "n0": ((3, 40), 0, 0, 128),
+                       "ragged_rows": ((3, 43), 9, 0, 128),
+                       "one_register": ((2, 40), 9, 32, 64),
+                       "one_lane": ((2, 40), 9, 0, 4),
+                       "resident": ((20000,), 12, 0, 128)}[case]
+    x = rng.standard_normal((*rows, 128)).astype(np.float32)
+    idx = rng.integers(lo, hi, (*rows, 128))
+    if case == "one_lane":
+        idx = 7 + 32 * idx
+    return (torch.from_numpy(x).to(device),
+            torch.from_numpy(idx.astype(np.int32)).to(device), n)
+
+
+@pytest.mark.parametrize("case", ["odd_n", "even_n", "n0", "ragged_rows",
+                                  "one_register", "one_lane", "resident"])
+@pytest.mark.parametrize("name", ["chain_gather", "chain_select"])
+def test_lane_chain_matches_plain_bitwise(cuda, name, case):
+    x, idx, n = _chain_case(case, cuda)
     fn = getattr(lane_chain, name)
     before = fn.launches
-    got = fn(x, idx, 9)
+    got = fn(x, idx, n)
     assert fn.launches == before + 1
-    want = getattr(lane_chain, f"{name}_torch")(x, idx, 9)
+    want = getattr(lane_chain, f"{name}_torch")(x, idx, n)
     assert torch.equal(got, want)
 
 
 def test_new_kernel_wrappers_reject_bad_inputs(cuda):
-    """CPU tensors, types and sizes the kernels do not take raise (a
-    ``win2d_sample`` block beyond its shared memory, ``hier_gather`` with
-    K > 16 or Cp not a multiple of 32; ``win2d_contract`` has no size limit
-    now, test_win2d_contract_paths_match_plain[wide]); nothing falls back
+    """CPU tensors, types and sizes the kernels do not take raise
+    (``hier_gather`` with K > 16 or Cp not a multiple of 32;
+    ``win2d_contract`` and ``win2d_sample`` have no size limit of shared
+    memory, test_win2d_contract_paths_match_plain[wide] and
+    test_win2d_sample_kernel_sizes_match_plain[wide]); nothing falls back
     to a plain version."""
     value, loc, attn = _grid_inputs(cuda, torch.float32)
     blocks, wins = windowed2d_plan(GRID_SHAPES, 6, 8, 5)
@@ -547,9 +600,6 @@ def test_new_kernel_wrappers_reject_bad_inputs(cuda):
         win2d.win2d_contract_cuda([fx[0][0].cpu()], fx[2], fx[4])
     with pytest.raises(TypeError):
         win2d.hier_gather(fx[1], [fx[3][0].long()], fx[5])
-    wide, _, _ = _grid_inputs(cuda, torch.float32, D=600)
-    with pytest.raises(ValueError, match="shared memory"):
-        win2d.win2d_sample_cuda(wide, GRID_SHAPES, taps)
     many = _fixture(1, 32, (64,), BH=1, D=8, n_taps=17, device=cuda)
     with pytest.raises(ValueError, match="K <= 16"):
         win2d.hier_gather_cuda(many[1], many[3], many[5])

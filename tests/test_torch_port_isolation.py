@@ -55,7 +55,7 @@ def test_port_imports_no_jax_module():
     for name in ("cli.train", "train.step", "train.engine", "losses.criterion",
                  "matching.matcher", "data.loader", "eval.metrics",
                  "ops.win2d", "ops.lane_chain", "scripts.probe",
-                 "scripts.lanegather_probe", "scripts.win2d_ab"):
+                 "scripts.lanegather_probe", "scripts.kernel_ab"):
         assert f"snipper_tpu_torch.{name}" in res["imported"], name
     leaked = [m for m in res["modules"]
               if m.split(".")[0] in FORBIDDEN]
