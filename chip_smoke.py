@@ -22,12 +22,22 @@ result):
    launch counts are set to 0 just before and read just after. Then check
    the output: finite, expected shapes, and the same forward with the
    plain MSDA (and the tiny model on the CPU) agreeing within the stated
-   tolerances.
+   tolerances. Then the same serving run with ``--device_preprocess``
+   (uint8 frames uploaded from pinned memory, warped on the card), counts
+   set to 0 just before and read just after; one snippet's host decode,
+   host warp, upload and device warp timed apart; the card's warp held
+   against the host warp and the port's CPU warp, and the forward on the
+   device-warped input against the forward on the host-warped input.
 5. Drive the training path: ``snipper_tpu_torch.cli.train`` on
    canonical_t4_f2 (full width and depth), batch 2, bf16 mixed precision,
    a few steps over the synthetic dataset, then its checkpoint and its
    evaluation; counts set to 0 just before and read just after. Check the
-   launches per step, the checkpoint and finite losses.
+   launches per step, the checkpoint and finite losses. Then drive
+   ``snipper_tpu_torch.cli.eval`` on that checkpoint (4 synthetic batches
+   of 2, ``--save_vis --write_posetrack``; counts at 0 just before, read
+   just after): launches per batch, finite ``eval_stats.json``, the
+   renders, ms per eval batch. Then the PoseTrack18 and COCO harnesses on
+   perfect predictions: AP 100 and MOTA 100.
 6. Hold one f32 train step (dropout 0) with the kernels against the same
    step with the plain MSDA forward and VJP on the card, TF32 off.
 7. Hold the sampling probes' kernels against their plain versions on the
@@ -89,6 +99,11 @@ TOL_BWD_REL = 1e-5
 TOL_FORWARD = 1e-3
 # Tiny model: CUDA (kernel) vs CPU (plain), TF32 off.
 TOL_TINY_MODEL = 1e-4
+# The inference warp on the card against the numpy host warp (f64
+# coordinates there, f32 here: the JAX package's test tolerance) and
+# against the port's same warp on the CPU (f32 sums of the same terms).
+TOL_WARP_HOST = 2e-3
+TOL_WARP_CPU = 1e-5
 # Kernels against plain versions that round one f32 sum once to bf16, in
 # another order: one bf16 unit (2^-7 of a value's magnitude) of the
 # largest output.
@@ -1073,6 +1088,164 @@ def phase_main_path(work, n_frames=31):
                 forward_diff=fwd_diff, tiny_diff=tiny_diff)
 
 
+def host_ms(fn, reps=5):
+    """Median host-clock ms of ``fn()`` over ``reps`` calls."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_serving_device(work, host_res, card):
+    """Serving with ``--device_preprocess`` on phase_main_path's frames and
+    checkpoint; then one snippet's host decode, host warp, upload and
+    device warp timed apart, the card's warp held against the host warp
+    (TOL_WARP_HOST) and the port's warp on the CPU (TOL_WARP_CPU) on those
+    frames and on 1280x720 frames (a resize with a zero border), and the
+    canonical forward on the device-warped input against the forward on
+    the host-warped input (TOL_FORWARD, TF32 off)."""
+    import numpy as np
+    import torch
+
+    from snipper_tpu_torch.cli import infer as infer_cli
+    from snipper_tpu_torch.config import Config
+    from snipper_tpu_torch.data.device_preprocess import (
+        invert_axis_aligned, preprocess_snippet_device, warp_affine_device)
+    from snipper_tpu_torch.data.transforms import (gen_trans_from_patch,
+                                                   generate_patch_image)
+    from snipper_tpu_torch.infer.pipeline import (_read_rgb,
+                                                  iter_snippet_samples)
+    from snipper_tpu_torch.models.snipper import build_model
+    from snipper_tpu_torch.ops.msda import ms_deform_attn
+    from snipper_tpu_torch.train.checkpoint import load_checkpoint
+
+    cfg = Config.canonical_t4()
+    frame_dir = os.path.join(work, "frames")
+    ckpt = os.path.join(work, "canonical_t4_seed0.pt")
+    out_dir = os.path.join(work, "out_device")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # ---- the serving path with the warp on the card, counts at 0 ---------
+    ms_deform_attn.launches = 0
+    stats = infer_cli.main([
+        "--preset", "canonical_t4", "--data_dir", frame_dir,
+        "--output_dir", out_dir, "--seq_gap", "1", "--resume", ckpt,
+        "--device_preprocess", "--device", "cuda"])
+    launches = {"msda_forward": ms_deform_attn.launches}
+    # ----------------------------------------------------------------------
+    n = stats["snippets"]
+    per_snippet = launches["msda_forward"] / n
+    check(n == host_res["snippets"], f"{n} snippets, the host path served "
+          f"{host_res['snippets']}")
+    check(per_snippet == cfg.enc_layers + cfg.dec_layers,
+          f"msda_forward launched {launches['msda_forward']} times for {n} "
+          f"snippets with --device_preprocess, expected "
+          f"{cfg.enc_layers + cfg.dec_layers} per snippet")
+    with open(os.path.join(out_dir, "tracks.pkl"), "rb") as f:
+        tracks = pickle.load(f)
+    check(set(tracks) == {"frames", "max_pid"}, "tracks.pkl keys")
+    with open(os.path.join(work, "out", "tracks.pkl"), "rb") as f:
+        host_frames = set(pickle.load(f)["frames"])
+    check(set(tracks["frames"]) == host_frames,
+          "tracks.pkl covers other frames than the host path's")
+    for pids, data in tracks["frames"].values():
+        check(np.all(np.isfinite(data)), "non-finite values in tracks")
+        check(data.ndim == 3 and data.shape[1:] == (cfg.num_kpts, 4)
+              or data.shape[0] == 0, f"track data shape {data.shape}")
+    done = stats["done_at"]
+    steady = (n - 1) / (done[-1] - done[0])
+    fwd_ms = statistics.median(stats["forward_ms"][1:])
+    wait_ms = statistics.median(stats["wait_ms"][1:])
+    log(f"serving --device_preprocess: {n} snippets, msda_forward launches "
+        f"{launches['msda_forward']} ({per_snippet:g}/snippet); steady-state"
+        f" {steady:.3f} snippets/s (host warp path "
+        f"{host_res['steady_snippets_per_s']:.3f}); per snippet (median, "
+        f"first excluded): waiting for host decode {wait_ms:.2f} ms (host "
+        f"path: decode + warp {host_res['wait_ms']:.2f}), upload + warp + "
+        f"forward + readback {fwd_ms:.2f} ms (host path: upload + forward +"
+        f" readback {host_res['forward_ms']:.2f})")
+
+    # ---- one snippet's input stages, apart -------------------------------
+    sample = next(iter_snippet_samples(frame_dir, cfg.num_frames, 1,
+                                       cfg.input_shape, warp_on_device=True))
+    paths = [os.path.join(frame_dir, f) for f in sample["filenames"]]
+    raw, trans = sample["raw_imgs"], sample["trans"]
+    shape = cfg.input_shape
+
+    def host_warp(frames):
+        return np.stack([generate_patch_image(im, False, trans, shape)
+                         for im in frames]).astype(np.float32)
+
+    decode_ms = host_ms(lambda: [_read_rgb(p) for p in paths])
+    host_warp_ms = host_ms(lambda: host_warp(raw), reps=3)
+    pinned = torch.from_numpy(raw).pin_memory()
+    raw_dev = pinned.cuda()
+    inv = invert_axis_aligned(trans)
+    upload_ms = time_ms(lambda: pinned.to("cuda", non_blocking=True))
+    warp_ms = time_ms(lambda: warp_affine_device(raw_dev, inv, shape))
+    warp_device_ms = device_ms(lambda: warp_affine_device(raw_dev, inv,
+                                                          shape), "")
+    upload_warp_ms = time_ms(lambda: preprocess_snippet_device(
+        pinned, trans, shape, "cuda"))
+    log(f"one snippet's input (4 frames of 800x600, {card}): host "
+        f"decode (_read_rgb x4) {decode_ms:.2f} ms, host warp "
+        f"{host_warp_ms:.2f} ms (host clock, median); upload of the uint8 "
+        f"frames from pinned memory {upload_ms:.4f} ms, device warp "
+        f"{warp_ms:.4f} ms (CUDA events), device warp kernels "
+        f"{warp_device_ms:.4f} ms (torch.profiler), upload + warp "
+        f"{upload_warp_ms:.4f} ms")
+
+    # ---- is the card's warp right? ---------------------------------------
+    set_tf32(False)
+    rng = np.random.default_rng(5)
+    big = rng.integers(0, 256, (cfg.num_frames, 720, 1280, 3), np.uint8)
+    scale = max(1280 / shape[1], 720 / shape[0])
+    big_trans = gen_trans_from_patch(640.0, 360.0, shape[1] * scale,
+                                     shape[0] * scale, shape[1], shape[0],
+                                     0.0)
+    warp_err = {}
+    for name, frames, t in (("800x600", raw, trans),
+                            ("1280x720", big, big_trans)):
+        got = preprocess_snippet_device(
+            torch.from_numpy(frames).pin_memory(), t, shape, "cuda").cpu()
+        cpu = preprocess_snippet_device(frames, t, shape).numpy()
+        host = np.stack([generate_patch_image(im, False, t, shape)
+                         for im in frames])
+        warp_err[name] = {
+            "host": float(np.abs(got.numpy() - host).max()),
+            "cpu": float(np.abs(got.numpy() - cpu).max())}
+        check(warp_err[name]["host"] <= TOL_WARP_HOST,
+              f"device warp vs host warp at {name}: {warp_err[name]}")
+        check(warp_err[name]["cpu"] <= TOL_WARP_CPU,
+              f"device warp vs the port's CPU warp at {name}: "
+              f"{warp_err[name]}")
+    model = build_model(cfg, device="cuda")
+    model.load_state_dict(load_checkpoint(ckpt)["params"])
+    host_x = torch.from_numpy(host_warp(raw)[None]).cuda()
+    dev_x = preprocess_snippet_device(pinned, trans, shape, "cuda")[None]
+    with torch.inference_mode():
+        fwd_diff = max_output_diff(model(dev_x), model(host_x))
+    check(max(fwd_diff.values()) <= TOL_FORWARD,
+          f"canonical forward on the device-warped input vs the host-warped"
+          f" input: {fwd_diff} > {TOL_FORWARD}")
+    log(f"device warp vs host warp (tol {TOL_WARP_HOST:g}) and vs the "
+        f"port's warp on the CPU (tol {TOL_WARP_CPU:g}): max|diff| "
+        f"{json.dumps(warp_err)}; canonical_t4 forward on the device-warped "
+        f"vs the host-warped input (TF32 off): max|diff| "
+        f"{json.dumps(fwd_diff)} (tol {TOL_FORWARD:g})")
+    del model, host_x, dev_x, raw_dev
+    torch.cuda.empty_cache()
+    return dict(snippets=n, launches=launches, per_snippet=per_snippet,
+                steady_snippets_per_s=steady, forward_ms=fwd_ms,
+                wait_ms=wait_ms, decode_ms=decode_ms,
+                host_warp_ms=host_warp_ms, upload_ms=upload_ms,
+                warp_ms=warp_ms, warp_device_ms=warp_device_ms,
+                upload_warp_ms=upload_warp_ms, warp_err=warp_err,
+                forward_diff=fwd_diff)
+
+
 def phase_train(work, steps=8):
     """The training path through the CLI a user calls: canonical_t4_f2,
     batch 2, bf16 mixed precision, ``steps`` steps over two distinct
@@ -1142,9 +1315,136 @@ def phase_train(work, steps=8):
         f"test_loss_total {logged['test_loss_total']:.4f} "
         f"(cuDNN TF32 on, matmul TF32 off)")
     return dict(steps=steps, eval_batches=n_eval, launches=launches,
+                checkpoint=res["checkpoint"],
                 per_step=per_step, per_forward=per_forward, step_ms=step_ms,
                 samples_per_s=2e3 / step_ms, peak_gb=peak_gb, losses=losses,
                 step_seconds=[h["seconds"] for h in hist])
+
+
+def phase_eval(work, ckpt, samples=8):
+    """The eval CLI a user calls on the checkpoint phase_train wrote:
+    canonical_t4_f2 on ``samples`` synthetic samples (batches of 2), with
+    ``--save_vis --write_posetrack``; counts set to 0 just before and read
+    just after."""
+    import torch
+
+    from snipper_tpu_torch.cli import eval as eval_cli
+    from snipper_tpu_torch.config import Config
+    from snipper_tpu_torch.ops.msda import ms_deform_attn
+
+    cfg = Config.canonical_t4_f2()
+    out_dir = os.path.join(work, "eval")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # ---- the eval path, with every kernel's count at 0 -------------------
+    ms_deform_attn.launches = 0
+    res = eval_cli.main([
+        "--preset", "canonical_t4_f2", "--synthetic", "--synthetic_samples",
+        str(samples), "--resume", ckpt, "--save_vis", "--write_posetrack",
+        "--output_dir", out_dir, "--device", "cuda"])
+    launches = {"msda_forward": ms_deform_attn.launches}
+    # ----------------------------------------------------------------------
+    n = res["batches"]
+    check(n == samples // cfg.batch_size, f"{n} eval batches")
+    per_batch = launches["msda_forward"] / n
+    check(per_batch == cfg.enc_layers + cfg.dec_layers,
+          f"msda_forward launched {launches['msda_forward']} times in {n} "
+          f"eval batches, expected {cfg.enc_layers + cfg.dec_layers} per "
+          f"batch")
+    with open(os.path.join(out_dir, "eval_stats.json")) as f:
+        stats = json.load(f)
+    bad = {k: v for k, v in stats.items() if not math.isfinite(v)}
+    # the 3D metrics need detections, which 8 train steps may not give
+    check(stats and not bad and "loss_total" in stats,
+          f"eval_stats.json: {stats}")
+    renders = sorted(os.listdir(os.path.join(out_dir, "eval_vis")))
+    check(any(r.startswith("eval_b0000_s") for r in renders)
+          and all(r.endswith(".jpg") for r in renders),
+          f"eval_vis renders: {renders}")
+    check(os.path.isdir(os.path.join(out_dir, "posetrack_results")),
+          "no posetrack_results directory")
+    batch_ms = statistics.median(res["batch_ms"][1:])
+    log(f"eval path: canonical_t4_f2 600x800 enc6/dec6, {n} batches of "
+        f"{cfg.batch_size} (f32 forward + criterion + outputs on the host); "
+        f"msda_forward launches {launches['msda_forward']} ({per_batch:g} "
+        f"per batch); {batch_ms:.2f} ms per eval batch (median, first "
+        f"excluded; all {[round(x, 2) for x in res['batch_ms']]}); eval loop"
+        f" {res['seconds']:.2f} s; {len(stats)} finite stats "
+        f"(loss_total {stats['loss_total']:.4f}, mpjpe_joint "
+        f"{stats.get('mpjpe_joint', 'absent: no detection')}); renders "
+        f"{renders} "
+        f"(cuDNN TF32 on, matmul TF32 off)")
+    return dict(batches=n, launches=launches, per_batch=per_batch,
+                batch_ms=batch_ms, batch_ms_all=res["batch_ms"],
+                seconds=res["seconds"], n_stats=len(stats), renders=renders)
+
+
+def phase_harness(work, n_frames=4):
+    """The PoseTrack18 and COCO harnesses on perfect predictions of a few
+    frames written to ``work``: AP 100 and MOTA 100 (PoseTrack, percent),
+    AP and AR 1.0 (COCO), as the JAX package's tests assert."""
+    import numpy as np
+
+    from snipper_tpu_torch.eval.coco_eval import evaluate_coco_keypoints
+    from snipper_tpu_torch.eval.posetrack_eval import evaluate_posetrack18
+
+    rng = np.random.default_rng(0)
+    root = os.path.join(work, "harness")
+    gt_dir, pred_dir = (os.path.join(root, d) for d in ("gt", "pred"))
+    for d in (gt_dir, pred_dir):
+        os.makedirs(d)
+    # two people over n_frames frames, 15 joints, predictions = GT
+    images = [{"id": i} for i in range(n_frames)]
+    gt_anns, pred_anns = [], []
+    for i in range(n_frames):
+        for tid, (x, y) in enumerate(((100, 120), (420, 200))):
+            k = np.zeros((15, 3))
+            k[:, 0] = x + 3 * i + np.arange(15) * 4.0
+            k[:, 1] = y + np.arange(15) % 5 * 12.0
+            k[:, 2] = 1.0
+            gt_anns.append({"image_id": i, "track_id": tid,
+                            "keypoints": k.reshape(-1).tolist(),
+                            "bbox_head": [x, y - 40, 30, 40]})
+            k[:, 2] = 0.9
+            pred_anns.append({"image_id": i, "track_id": 10 + tid,
+                              "keypoints": k.reshape(-1).tolist()})
+    for d, anns in ((gt_dir, gt_anns), (pred_dir, pred_anns)):
+        with open(os.path.join(d, "seq.json"), "w") as f:
+            json.dump({"images": images, "annotations": anns}, f)
+    pt = evaluate_posetrack18(gt_dir, pred_dir)
+    ap = float(pt["ap"]["ap"][-1])
+    mota = float(pt["tracking"]["mota"][-1])
+    check(abs(ap - 100.0) < 1e-9 and abs(mota - 100.0) < 1e-6,
+          f"posetrack harness on perfect predictions: AP {ap}, MOTA {mota}")
+
+    coco_gt = {"images": [{"id": i} for i in range(3)], "annotations": []}
+    coco_pred = []
+    for i in range(3):
+        k = np.zeros((17, 3))
+        k[:, 0:2] = rng.uniform(50, 400, (17, 2))
+        k[:, 2] = 2
+        coco_gt["annotations"].append({
+            "image_id": i, "id": i + 1, "category_id": 1,
+            "keypoints": k.reshape(-1).tolist(), "area": 5000.0,
+            "num_keypoints": 17, "iscrowd": 0})
+        coco_pred.append({"image_id": i, "category_id": 1,
+                          "keypoints": k.reshape(-1).tolist(),
+                          "score": 0.9})
+    paths = []
+    for name, data in (("coco_gt.json", coco_gt),
+                       ("coco_pred.json", coco_pred)):
+        paths.append(os.path.join(root, name))
+        with open(paths[-1], "w") as f:
+            json.dump(data, f)
+    coco = evaluate_coco_keypoints(*paths)
+    check(abs(coco["AP"] - 1.0) < 1e-9 and abs(coco["AR"] - 1.0) < 1e-9,
+          f"coco harness on perfect predictions: {coco}")
+    log(f"harness (host numpy, no JAX/motmetrics/pycocotools): PoseTrack18 "
+        f"over {n_frames} frames x 2 people AP {ap:.4f}, MOTA {mota:.4f}, "
+        f"PCKh {float(pt['pckh']['pckh'][-1]):.4f}; COCO over 3 images AP "
+        f"{coco['AP']:.4f}, AR {coco['AR']:.4f}")
+    return dict(posetrack_ap=ap, posetrack_mota=mota, coco_ap=coco["AP"],
+                coco_ar=coco["AR"])
 
 
 def phase_train_agreement(tol_loss=1e-4, tol_grad=1e-3):
@@ -1295,10 +1595,14 @@ def main() -> int:
     win_res = phase_windowed_kernels()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        # 4. the inference path
+        # 4. the inference path, with the host warp, then the device warp
         main_res = phase_main_path(work)
-        # 5. the training path
+        serve_res = phase_serving_device(work, main_res, card)
+        # 5. the training path, then the eval CLI on its checkpoint
         train_res = phase_train(work)
+        eval_res = phase_eval(work, train_res["checkpoint"])
+        # 5b. the PoseTrack/COCO harness
+        harness_res = phase_harness(work)
     # 6. a train step, kernels against the plain MSDA
     agree_res = phase_train_agreement()
     # 8. the probe path
@@ -1323,8 +1627,12 @@ def main() -> int:
         "at": "inference encoder shape, f32: N=4 Lq=9875 H=8 D=48 L=3 P=4",
         "ptxas": ptxas["msda_forward"],
         "per_snippet_launches": main_res["per_snippet"],
+        "device_preprocess_serving_launches":
+            serve_res["launches"]["msda_forward"],
         "train_launches": train_res["launches"]["msda_forward"],
         "per_train_forward_launches": train_res["per_forward"],
+        "eval_launches": eval_res["launches"]["msda_forward"],
+        "per_eval_batch_launches": eval_res["per_batch"],
         "shapes": shapes_res,
     }, {
         "name": "msda_backward",
@@ -1405,7 +1713,11 @@ def main() -> int:
             kernels[-1]["issue_ms"] = head["issue_ms"]
             kernels[-1]["sm_clock_mhz"] = head["sm_clock_mhz"]
     log(f"card: {card}; inference path "
-        f"{main_res['steady_snippets_per_s']:.3f} snippets/s; training "
+        f"{main_res['steady_snippets_per_s']:.3f} snippets/s (host warp), "
+        f"{serve_res['steady_snippets_per_s']:.3f} (--device_preprocess); "
+        f"eval {eval_res['batch_ms']:.2f} ms/batch; harness AP "
+        f"{harness_res['posetrack_ap']:g} MOTA "
+        f"{harness_res['posetrack_mota']:g}; training "
         f"path {train_res['step_ms']:.2f} ms/step, "
         f"{train_res['samples_per_s']:.3f} samples/s, peak "
         f"{train_res['peak_gb']:.2f} GB; train step kernels vs plain: "

@@ -3,7 +3,7 @@
 The port's own copy of ``snipper_tpu/data/loader.py::DataLoader``
 (``:27-143``): a thread collates host batches (two ahead) while the card
 runs the previous step, and ``num_workers`` threads decode the samples of
-a batch. A last partial batch is dropped.
+a batch. A last partial batch is dropped unless ``drop_last=False``.
 The process shard is passed in explicitly (``process_index``,
 ``process_count``); a single process reads the whole dataset. Every process
 derives the same permutation from ``(seed, epoch)``, pads it by wrap-around
@@ -25,7 +25,8 @@ from snipper_tpu_torch.data.snippet import stack_batch
 class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 0, process_index: int = 0,
-                 process_count: int = 1, num_workers: int = 0):
+                 process_count: int = 1, num_workers: int = 0,
+                 drop_last: bool = True):
         if not 0 <= process_index < process_count:
             raise ValueError(f"need 0 <= process_index < process_count (got "
                              f"{process_index}, {process_count})")
@@ -34,6 +35,7 @@ class DataLoader:
         self.shuffle = shuffle
         self.seed = seed
         self.num_workers = num_workers
+        self.drop_last = drop_last
         self.epoch = 0
         self.process_index = process_index
         self.process_count = process_count
@@ -44,7 +46,9 @@ class DataLoader:
         return (n + self.process_count - 1) // self.process_count
 
     def __len__(self):
-        return self._shard_len() // self.batch_size
+        n = self._shard_len()
+        return n // self.batch_size if self.drop_last else \
+            (n + self.batch_size - 1) // self.batch_size
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch

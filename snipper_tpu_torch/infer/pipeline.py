@@ -5,7 +5,8 @@ The port's own copy of the host functions of
 
 - ``snippet_index``: snippet start stride ``gap * (T - 1)``, so consecutive
   snippets overlap by exactly one frame.
-- ``iter_snippet_samples``: lazy decode + centre affine resize on the host.
+- ``iter_snippet_samples``: lazy decode + centre affine resize on the host,
+  or decode alone for the warp on the device.
 - ``associate_snippets``: greedy bidirectional-argmin identity propagation
   over the shared frame; matched poses on the overlap are score-weighted
   averaged.
@@ -90,10 +91,16 @@ def snippet_index(data_dir: str, num_frames: int, gap: int):
 
 def iter_snippet_samples(data_dir: str, num_frames: int, gap: int,
                          input_shape: Tuple[int, int],
+                         warp_on_device: bool = False,
                          index: Optional[tuple] = None):
     """Lazily decode snippet samples: dicts with ``imgs [T, H, W, 3]``
     float32 in [0, 1], ``filenames``, ``inv_trans``, ``input_size`` (w, h)
     and ``img_size`` (w, h).
+
+    ``warp_on_device``: skip the host warp; a sample carries the decoded
+    uint8 ``raw_imgs [T, H, W, 3]`` and the forward affine ``trans`` for
+    :func:`snipper_tpu_torch.data.device_preprocess.preprocess_snippet_device`
+    instead of ``imgs``.
 
     ``index``: a precomputed ``(frame_indices, all_files)`` from
     :func:`snippet_index`, the same listing the caller associates against."""
@@ -113,15 +120,20 @@ def iter_snippet_samples(data_dir: str, num_frames: int, gap: int,
         trans = gen_trans_from_patch(cx, cy, w * scale, h * scale, w, h, 0.0)
         inv_trans = gen_trans_from_patch(cx, cy, w * scale, h * scale, w, h,
                                          0.0, inv=True)
-        yield {
+        sample = {
             "filenames": filenames,
             "inv_trans": inv_trans.astype(np.float32),
             "input_size": np.array([w, h], np.float32),
             "img_size": np.array([img_w, img_h], np.float32),
-            "imgs": np.stack(
-                [generate_patch_image(im, False, trans, (h, w))
-                 for im in imgs]).astype(np.float32),
         }
+        if warp_on_device:
+            sample["raw_imgs"] = imgs.astype(np.uint8)
+            sample["trans"] = trans.astype(np.float32)
+        else:
+            sample["imgs"] = np.stack(
+                [generate_patch_image(im, False, trans, (h, w))
+                 for im in imgs]).astype(np.float32)
+        yield sample
 
 
 def prefetched(it, depth: int = 2):

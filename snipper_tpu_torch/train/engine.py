@@ -6,7 +6,8 @@ step's scalars with one host copy and aborts on a non-finite loss
 (reference ``engine.py:68-71``); ``evaluate`` runs forward + criterion per
 batch, the PostProcess and the 3D metrics over the current and the future
 frames (reference ``engine.py:99-212``): MPJPE root/joint, pelvis-aligned
-MPJPE and 3DPCK_rel @ 0.15 m, and PCKh on PoseTrack-style samples.
+MPJPE and 3DPCK_rel @ 0.15 m, and PCKh on PoseTrack-style samples; on
+request it collects the results and renders the first batches.
 """
 
 from __future__ import annotations
@@ -105,17 +106,26 @@ def train_one_epoch(state, criterion, loader, epoch: int,
 
 
 def evaluate(model, criterion, loader, cfg: Config, device: torch.device,
-             print_freq: int = 10) -> Dict:
+             print_freq: int = 10, collect_results: bool = False,
+             save_vis_dir: Optional[str] = None,
+             save_vis_batches: int = 2) -> Dict:
     """Losses and 3D/2D pose metrics over ``loader``; ``_batches`` counts
-    the batches."""
+    the batches and ``_batch_seconds`` holds each batch's host time (it
+    ends with the outputs read to the host).
+
+    ``collect_results``: the PostProcess results of every sample are
+    returned under ``_results``. ``save_vis_dir``: the first
+    ``save_vis_batches`` batches get GT-vs-prediction keypoint renders
+    written there (reference ``engine.py:132-135`` under ``save_vis``)."""
     logger = MetricLogger()
     T, Tf = cfg.num_frames, cfg.num_future_frames
     pose3d = {k: [] for k in POSE3D_KEYS}
     pose3d_future = {k: [] for k in POSE3D_KEYS}
     pckh = {k: [] for k in PCKH_KEYS}
-    n_batches = 0
-    for batch in logger.log_every(loader, print_freq, "Eval:"):
-        n_batches += 1
+    all_results, batch_seconds = [], []
+    for batch_idx, batch in enumerate(logger.log_every(loader, print_freq,
+                                                       "Eval:")):
+        t0 = time.perf_counter()
         outputs, losses, src_idx = eval_step(
             model, criterion, batch_to_device(batch, device))
         logger.update(**_read_scalars(losses))
@@ -123,6 +133,16 @@ def evaluate(model, criterion, loader, cfg: Config, device: torch.device,
                       for k in ("pred_logits", "pred_kpts2d", "pred_depth")}
         results = postprocess(outputs_np, batch["meta"],
                               src_idx.cpu().numpy())
+        batch_seconds.append(time.perf_counter() - t0)
+        if collect_results:
+            all_results.extend(results)
+        if save_vis_dir is not None and batch_idx < save_vis_batches:
+            from snipper_tpu_torch.infer.visualize import \
+                save_eval_keypoint_renders
+
+            save_eval_keypoint_renders(
+                results, np.asarray(batch["images"]), save_vis_dir,
+                batch_idx=batch_idx)
         # 2D PCKh on posetrack-style samples (reference
         # eval_utils.py:96-175; observed frames only)
         for key in PCKH_KEYS:
@@ -150,5 +170,8 @@ def evaluate(model, criterion, loader, cfg: Config, device: torch.device,
                 stats[f"{name}{k}"] = float(v.mean())
     print("Eval stats:", {k: round(v, 4) for k, v in stats.items()
                           if not k.startswith("loss")}, flush=True)
-    stats["_batches"] = n_batches
+    stats["_batches"] = len(batch_seconds)
+    stats["_batch_seconds"] = batch_seconds
+    if collect_results:
+        stats["_results"] = all_results
     return stats

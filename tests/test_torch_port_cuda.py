@@ -1,7 +1,9 @@
 """The CUDA kernels ``msda_forward``, ``msda_backward``, ``win2d_sample``,
 ``win2d_contract``, ``hier_gather``, ``chain_gather`` and ``chain_select``
-against their plain PyTorch versions, on a CUDA card. Without one, every test here skips
-(the kernels have no CPU mode).
+against their plain PyTorch versions, and the device warp, ``cli.infer
+--device_preprocess`` and ``cli.eval`` on the card against the CPU, on a
+CUDA card. Without one, every test here skips (the kernels have no CPU
+mode).
 
 This file imports nothing of JAX, so it also runs on a GPU host without
 JAX (tests/conftest.py imports JAX, hence ``--noconftest``):
@@ -285,6 +287,133 @@ def test_tiny_train_step_cuda_matches_cpu(cuda):
         torch.testing.assert_close(res["cuda"][1][k], v, rtol=1e-4,
                                    atol=1e-5, msg=k)
 
+
+
+# ------------------------------------------- the device warp, serving, eval
+def test_device_warp_cuda_matches_cpu(cuda):
+    """The warp on the card against the CPU within 1e-5, with TF32 matrix
+    products allowed during the call: the warp gathers and blends in f32
+    and has no matrix product for TF32 to touch."""
+    from snipper_tpu_torch.data.device_preprocess import (
+        invert_axis_aligned, warp_affine_device)
+    from snipper_tpu_torch.data.transforms import gen_trans_from_patch
+
+    rng = np.random.default_rng(0)
+    cases = [  # (frames, forward affine, out shape, flip)
+        (rng.integers(0, 256, (4, 720, 1280, 3), np.uint8),
+         gen_trans_from_patch(640.0, 360.0, 960.0, 720.0, 800, 600, 0.0),
+         (600, 800), False),
+        (rng.integers(0, 256, (20, 20, 3), np.uint8),
+         gen_trans_from_patch(10.0, 10.0, 60.0, 60.0, 24, 24, 0.0),
+         (24, 24), True),
+    ]
+    for imgs, trans, shape, flip in cases:
+        inv = invert_axis_aligned(trans)
+        x = torch.from_numpy(imgs).pin_memory().to(cuda, non_blocking=True)
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            got = warp_affine_device(x, inv, shape, do_flip=flip)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+        want = warp_affine_device(torch.from_numpy(imgs), inv, shape,
+                                  do_flip=flip)
+        assert got.is_cuda and got.dtype == torch.float32
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
+def _tiny_checkpoint(path):
+    """A trainer checkpoint of the tiny model with sampling projections
+    that move the sampling points."""
+    cfg = Config.tiny()
+    model = build_model(cfg, device="cpu", seed=1)
+    g = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("sampling_offsets.weight",
+                              "attention_weights.weight")):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+    torch.save({"params": model.state_dict(), "step": 0}, path)
+    return cfg
+
+
+def test_cli_infer_device_preprocess_cuda_matches_cpu(cuda, tmp_path,
+                                                      monkeypatch):
+    """``cli.infer --device_preprocess`` on the card: the uint8 frames
+    reach the warp from pinned memory, and the tracks equal the same run
+    on the CPU."""
+    import pickle
+
+    from PIL import Image
+
+    from snipper_tpu_torch.cli import infer as infer_cli
+
+    cfg = _tiny_checkpoint(str(tmp_path / "ckpt.pt"))
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(5):
+        Image.fromarray(rng.integers(0, 255, (72, 100, 3), np.uint8)).save(
+            frames / f"{i:06d}.jpg")
+    seen = []
+    real = infer_cli.preprocess_snippet_device
+
+    def spy(raw, *a, **kw):
+        seen.append((torch.is_tensor(raw) and raw.is_pinned(),
+                     str(kw.get("device", a[-1] if a else None))))
+        return real(raw, *a, **kw)
+
+    monkeypatch.setattr(infer_cli, "preprocess_snippet_device", spy)
+    tracks = {}
+    for dev in ("cuda", "cpu"):
+        before = ms_deform_attn.launches
+        out = tmp_path / dev
+        stats = infer_cli.main([
+            "--preset", "tiny", "--data_dir", str(frames), "--seq_gap", "1",
+            "--resume", str(tmp_path / "ckpt.pt"), "--device_preprocess",
+            "--output_dir", str(out), "--device", dev])
+        assert stats["snippets"] == 4
+        launches = ms_deform_attn.launches - before
+        assert launches == (4 * (cfg.enc_layers + cfg.dec_layers)
+                            if dev == "cuda" else 0)
+        with open(out / "tracks.pkl", "rb") as f:
+            tracks[dev] = pickle.load(f)
+    assert seen[:4] == [(True, "cuda")] * 4
+    assert [p for p, _ in seen[4:]] == [False] * 4
+    got, want = tracks["cuda"], tracks["cpu"]
+    assert got["max_pid"] == want["max_pid"] > 0
+    assert set(got["frames"]) == set(want["frames"])
+    for k, (pids, data) in want["frames"].items():
+        assert list(got["frames"][k][0]) == list(pids)
+        np.testing.assert_allclose(got["frames"][k][1], data, rtol=1e-3,
+                                   atol=5e-3)
+
+
+def test_cli_eval_cuda_matches_cpu(cuda, tmp_path):
+    """``cli.eval`` at the tiny preset on the card (kernel) against
+    ``--device cpu`` (plain): every number of ``eval_stats.json`` within
+    1e-4 relative."""
+    import json
+
+    from snipper_tpu_torch.cli import eval as eval_cli
+
+    cfg = _tiny_checkpoint(str(tmp_path / "ckpt.pt"))
+    stats = {}
+    for dev in ("cuda", "cpu"):
+        before = ms_deform_attn.launches
+        res = eval_cli.main([
+            "--preset", "tiny", "--synthetic", "--synthetic_samples", "4",
+            "--num_workers", "0", "--resume", str(tmp_path / "ckpt.pt"),
+            "--output_dir", str(tmp_path / dev), "--device", dev])
+        assert res["batches"] == 4
+        assert ms_deform_attn.launches - before == (
+            4 * (cfg.enc_layers + cfg.dec_layers) if dev == "cuda" else 0)
+        with open(tmp_path / dev / "eval_stats.json") as f:
+            stats[dev] = json.load(f)
+    assert set(stats["cuda"]) == set(stats["cpu"])
+    for k, v in stats["cpu"].items():
+        np.testing.assert_allclose(stats["cuda"][k], v, rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
 
 
 # ------------------------------------------- windowed sampling and the probe

@@ -2,8 +2,9 @@
 
 A fresh interpreter imports every module of ``snipper_tpu_torch`` and
 ``chip_smoke``; no ``jax``, ``flax``, ``optax``, ``orbax`` or
-``snipper_tpu`` module may end up in ``sys.modules``. A source scan finds
-no such import statement.
+``snipper_tpu`` module may end up in ``sys.modules``, and neither may
+matplotlib or PIL (the render and decode paths import them when they
+run). A source scan finds no such import statement.
 """
 
 import json
@@ -55,10 +56,13 @@ def test_port_imports_no_jax_module():
     for name in ("cli.train", "train.step", "train.engine", "losses.criterion",
                  "matching.matcher", "data.loader", "eval.metrics",
                  "ops.win2d", "ops.lane_chain", "scripts.probe",
-                 "scripts.lanegather_probe", "scripts.kernel_ab"):
+                 "scripts.lanegather_probe", "scripts.kernel_ab",
+                 "cli.eval", "data.device_preprocess", "infer.visualize",
+                 "eval.posetrack_eval", "eval.coco_eval",
+                 "eval.posetrack_writer"):
         assert f"snipper_tpu_torch.{name}" in res["imported"], name
     leaked = [m for m in res["modules"]
-              if m.split(".")[0] in FORBIDDEN]
+              if m.split(".")[0] in FORBIDDEN + ("matplotlib", "PIL")]
     assert not leaked, leaked
 
 
@@ -83,3 +87,16 @@ def test_port_sources_import_no_jax():
     for path in files:
         hits = pattern.findall(path.read_text())
         assert not hits, (path, hits)
+
+
+def test_cli_modules_run_as_scripts():
+    """Each entry point answers ``python -m ... --help``."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in [env.get("PYTHONPATH")] if p])
+    for name in ("infer", "eval", "train"):
+        proc = subprocess.run(
+            [sys.executable, "-m", f"snipper_tpu_torch.cli.{name}", "--help"],
+            cwd=REPO, capture_output=True, text=True, timeout=300, env=env)
+        assert proc.returncode == 0, (name, proc.stderr)
+        assert "--device" in proc.stdout, name
