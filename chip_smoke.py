@@ -38,6 +38,17 @@ result):
    just after): launches per batch, finite ``eval_stats.json``, the
    renders, ms per eval batch. Then the PoseTrack18 and COCO harnesses on
    perfect predictions: AP 100 and MOTA 100.
+   Then training and eval from reference-format files: a PoseTrack18-format
+   set (two videos, 1280x720 and 1920x1080) written and extracted with the
+   port's ``preprocess.posetrack``; the card's train warp held against the
+   host ``warp_patch`` on one loader batch and timed;
+   ``cli.train --posetrack_dir --device_preprocess`` for a few steps and
+   one eval (counts at 0 just before, read just after: launches per step
+   and per eval batch, finite losses, the checkpoint, the busy share of
+   one profiled step from raw frames), the same with the host warp (step
+   time, the loader's host decode and warp), and ``cli.eval`` with the
+   PoseTrack harness on the checkpoint (launches per batch, finite stats
+   with the ``posetrack_ap_*`` keys, ms per batch).
 6. Hold one f32 train step (dropout 0) with the kernels against the same
    step with the plain MSDA forward and VJP on the card, TF32 off.
 7. Hold the sampling probes' kernels against their plain versions on the
@@ -180,23 +191,47 @@ def ptxas_report(build_log, nvcc):
     return out
 
 
+def profiled_kernels(fn, reps=1, need=("",), tries=3):
+    """The device kernels (torch.profiler's ``key_averages``, with time on
+    the card) of ``reps`` calls of ``fn``. The profile is taken again when
+    a name in ``need`` matches none of them, as happens when the profiler
+    drops a run's device events; after ``tries`` profiles the check fails,
+    so that no number is reported that the run did not measure."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        # device-side kernels only: the host ops that launch them carry
+        # the same time again, and so do user-annotated ranges on the
+        # device (AdamW's "Optimizer.step") over kernels counted already
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and e.self_device_time_total > 0]
+        missing = [n for n in need if not any(n in e.key for e in kernels)]
+        if not missing:
+            return kernels
+    check(False, f"torch.profiler recorded no kernel named {missing} in "
+          f"{tries} profiles")
+
+
 def device_ms(fn, kernel, reps=10):
     """The device time of the kernels whose names hold ``kernel``, per call
     of ``fn`` (torch.profiler): the kernel alone, without the host's launch
     and allocation time that ``time_ms`` also sees at small shapes."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and kernel in e.key)
+    us = sum(e.self_device_time_total
+             for e in profiled_kernels(fn, reps, need=(kernel,))
+             if kernel in e.key)
     return us / 1e3 / reps
 
 
@@ -925,29 +960,18 @@ def forward_with_plain_msda(model, x):
         deform_attn.ms_deform_attn = wrapper
 
 
-def breakdown(fn, top=8, reps=5):
+def breakdown(fn, top=8, reps=5, need=("msda_forward",)):
     """Device time of one call of ``fn`` by kernel (torch.profiler), its
     wall time (CUDA events, median of ``reps``) and the device's busy
-    share of that wall time."""
+    share of that wall time. ``need``: the kernels that ``fn`` launches
+    whose times are reported apart."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     wall_ms = time_ms(fn, reps=reps, warmup=0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    # device-side kernels only: the host ops that launch them carry the
-    # same time again, and so do user-annotated ranges on the device
-    # (AdamW's "Optimizer.step") over kernels that are counted already
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and e.self_device_time_total > 0]
+    kernels = profiled_kernels(fn, need=need)
     total_us = sum(e.self_device_time_total for e in kernels)
     kernels.sort(key=lambda e: -e.self_device_time_total)
     msda_us = {name: sum(e.self_device_time_total for e in kernels
@@ -1301,14 +1325,19 @@ def phase_train(work, steps=8):
            and not math.isfinite(v)}
     check(not bad and "test_loss_total" in logged,
           f"log.txt: non-finite or missing losses {bad}")
+    # a step's ``seconds`` leaves out the wait for its batch, which holds
+    # the batch's copy to the card: the period is the two together
     step_ms = statistics.median(h["seconds"] for h in hist[2:]) * 1e3
+    period_ms = statistics.median(h["seconds"] + h["data_seconds"]
+                                  for h in hist[2:]) * 1e3
     log(f"training path: canonical_t4_f2 600x800 enc6/dec6 batch 2 bf16 "
         f"mixed precision, {steps} steps + {n_eval} eval batches; "
         f"msda_forward {launches['msda_forward']} launches ({per_forward:g}"
         f" per step and per eval batch), msda_backward "
         f"{launches['msda_backward']} ({per_step:g} per step); steady-state "
-        f"step {step_ms:.2f} ms "
-        f"(median, first two steps excluded), {2e3 / step_ms:.3f} samples/s;"
+        f"step {step_ms:.2f} ms, period {period_ms:.2f} ms "
+        f"(median, first two steps excluded), {2e3 / period_ms:.3f} "
+        f"samples/s;"
         f" peak device memory {peak_gb:.2f} GB; losses "
         f"{[round(x, 4) for x in losses]}; checkpoint "
         f"{os.path.basename(res['checkpoint'])}; eval "
@@ -1317,7 +1346,8 @@ def phase_train(work, steps=8):
     return dict(steps=steps, eval_batches=n_eval, launches=launches,
                 checkpoint=res["checkpoint"],
                 per_step=per_step, per_forward=per_forward, step_ms=step_ms,
-                samples_per_s=2e3 / step_ms, peak_gb=peak_gb, losses=losses,
+                period_ms=period_ms, samples_per_s=2e3 / period_ms,
+                peak_gb=peak_gb, losses=losses,
                 step_seconds=[h["seconds"] for h in hist])
 
 
@@ -1377,6 +1407,256 @@ def phase_eval(work, ckpt, samples=8):
     return dict(batches=n, launches=launches, per_batch=per_batch,
                 batch_ms=batch_ms, batch_ms_all=res["batch_ms"],
                 seconds=res["seconds"], n_stats=len(stats), renders=renders)
+
+
+POSETRACK_VIDEOS = (("000001_mpii_test", 1280, 720),
+                    ("000002_mpii_test", 1920, 1080))
+
+
+def write_posetrack_raw(root, n_frames=32, n_tracks=3, seed=0):
+    """A PoseTrack18-format raw set under ``root``: each video of
+    POSETRACK_VIDEOS as ``n_frames`` JPEG frames (a coarse seeded colour
+    field, seeded noise, and ``n_tracks`` people drawn as joint squares
+    moving across it) with one annotation JSON per video in
+    ``annotations/train`` and ``annotations/val`` (the same frames):
+    17 keypoints, a track id, a box and a head box per person."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for vid_idx, (video, width, height) in enumerate(POSETRACK_VIDEOS):
+        images, annotations = [], []
+        start = rng.uniform([0.2 * width, 0.25 * height],
+                            [0.8 * width, 0.6 * height], (n_tracks, 2))
+        vel = rng.uniform(-4.0, 4.0, (n_tracks, 2)) * width / 1280
+        body = rng.uniform([-0.06 * width, -0.2 * height],
+                           [0.06 * width, 0.25 * height], (n_tracks, 17, 2))
+        field = rng.integers(0, 256, (9, 16, 3), dtype=np.uint8)
+        base = np.asarray(Image.fromarray(field).resize((width, height),
+                                                         Image.BILINEAR))
+        os.makedirs(os.path.join(root, "images", video), exist_ok=True)
+        for i in range(n_frames):
+            img = base.astype(np.int16) + rng.integers(
+                -12, 13, (height, width, 3), dtype=np.int16)
+            fn = f"images/{video}/{i:06d}.jpg"
+            img_id = 10000 * (vid_idx + 1) + i
+            images.append({"id": img_id, "file_name": fn,
+                           "is_labeled": True, "vid_id": video,
+                           "frame_id": i})
+            for tid in range(n_tracks):
+                k = start[tid] + vel[tid] * i + body[tid]
+                k = np.clip(k, 8, [width - 9, height - 9])
+                for x, y in k.astype(int):
+                    img[y - 6:y + 7, x - 6:x + 7] = (255, 40 * tid, 0)
+                x0, y0 = k.min(0)
+                x1, y1 = k.max(0)
+                annotations.append({
+                    "image_id": img_id, "track_id": tid, "category_id": 1,
+                    "id": img_id * 10 + tid,
+                    "keypoints": np.concatenate(
+                        [k, np.ones((17, 1))], 1).reshape(-1).tolist(),
+                    "bbox": [float(x0), float(y0), float(x1 - x0),
+                             float(y1 - y0)],
+                    "bbox_head": [float(k[0, 0] - 20), float(k[0, 1] - 20),
+                                  40.0, 40.0]})
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                os.path.join(root, fn), quality=90)
+        for subset in ("train", "val"):
+            ann_dir = os.path.join(root, "annotations", subset)
+            os.makedirs(ann_dir, exist_ok=True)
+            with open(os.path.join(ann_dir, f"{video}.json"), "w") as f:
+                json.dump({"images": images, "annotations": annotations,
+                           "categories": [{"id": 1, "name": "person"}]}, f)
+    return os.path.join(root, "annotations", "val")
+
+
+def phase_train_real(work, card, steps=8, host_steps=3):
+    """Training and eval from reference-format files: a PoseTrack18 raw set
+    (two videos, 1280x720 and 1920x1080, 32 frames, 3 people) run through
+    the port's extractors; (a) the card's train warp against the host
+    ``warp_patch`` on the loader's collation of one sample of each video
+    (canonical_t4_f2, same seed), timed by CUDA events and by its kernels;
+    (b) ``cli.train --posetrack_dir --device_preprocess`` for ``steps``
+    steps and one eval, counts at 0 just before and read just after, and
+    the busy share of one profiled step from raw frames; (c) the same run
+    with the host warp for ``host_steps`` steps, with the loader's host
+    time of one batch split into decode and warp; (d) ``cli.eval`` on (b)'s
+    checkpoint with the PoseTrack harness, counts at 0 just before and
+    read just after."""
+    import numpy as np
+    import torch
+
+    from snipper_tpu_torch.cli import eval as eval_cli
+    from snipper_tpu_torch.cli import train as train_cli
+    from snipper_tpu_torch.config import Config
+    from snipper_tpu_torch.data.datasets import HybridDataset, _read_rgb
+    from snipper_tpu_torch.data.device_preprocess import \
+        warp_train_batch_device
+    from snipper_tpu_torch.data.preprocess import posetrack as pt_pp
+    from snipper_tpu_torch.data.snippet import stack_batch
+    from snipper_tpu_torch.losses.criterion import SetCriterion
+    from snipper_tpu_torch.models.snipper import build_model
+    from snipper_tpu_torch.ops.msda import ms_deform_attn
+    from snipper_tpu_torch.train.state import create_train_state
+    from snipper_tpu_torch.train.step import batch_to_device, train_step
+
+    cfg = Config.canonical_t4_f2()
+    per_pass = cfg.enc_layers + cfg.dec_layers
+    root = os.path.join(work, "posetrack_real")
+    t0 = time.perf_counter()
+    gt_dir = write_posetrack_raw(root)
+    with contextlib.redirect_stdout(io.StringIO()):
+        pt_pp.extract(root, root, "train")
+        pt_pp.fillin(root, "train")
+        pt_pp.extract(root, root, "val")
+    write_s = time.perf_counter() - t0
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # ---- (a) the card's train warp against the host warp -----------------
+    ds_dev = HybridDataset(cfg, "train", posetrack_dir=root, seed=0,
+                           device_preprocess=True)
+    ds_host = HybridDataset(cfg, "train", posetrack_dir=root, seed=0)
+    pick = (0, len(ds_dev) - 1)  # one sample of each video
+    raw_batch = stack_batch([ds_dev[i] for i in pick])
+    host_images = np.stack([ds_host[i]["images"] for i in pick])
+    dev = batch_to_device(raw_batch, torch.device("cuda"))
+    shape = cfg.input_shape
+
+    def warp():
+        return warp_train_batch_device(dev["raw_images"], dev["warp_inv"],
+                                       dev["color_scale"], shape)
+
+    warp_err = float(np.abs(warp().cpu().numpy() - host_images).max())
+    check(warp_err <= TOL_WARP_HOST,
+          f"train warp on the card vs the host warp_patch: {warp_err}")
+    warp_ms = time_ms(warp)
+    warp_device_ms = device_ms(warp, "")
+    raw_shape = tuple(raw_batch["raw_images"].shape)
+    log(f"train warp on the card (canonical_t4_f2, raw batch {raw_shape} "
+        f"uint8 padded from 1280x720 and 1920x1080, {card}): max|diff| vs "
+        f"the host warp_patch {warp_err:.3e} (tol {TOL_WARP_HOST:g}); "
+        f"{warp_ms:.4f} ms (CUDA events), {warp_device_ms:.4f} ms of "
+        f"kernels (torch.profiler); data written and extracted in "
+        f"{write_s:.2f} s")
+
+    # ---- (b) training with the device warp, counts at 0 ------------------
+    out_dev = os.path.join(work, "train_real")
+    ms_deform_attn.launches = 0
+    ms_deform_attn.backward_launches = 0
+    res = train_cli.main([
+        "--preset", "canonical_t4_f2", "--batch_size", "2",
+        "--posetrack_dir", root, "--device_preprocess", "--epochs", "1",
+        "--steps_per_epoch", str(steps), "--output_dir", out_dev,
+        "--device", "cuda"])
+    train_launches = {"msda_forward": ms_deform_attn.launches,
+                      "msda_backward": ms_deform_attn.backward_launches}
+    # ----------------------------------------------------------------------
+    hist = res["history"]
+    n_eval = res["eval"]["_batches"]
+    check(len(hist) == steps, f"{len(hist)} train steps, expected {steps}")
+    check(train_launches["msda_backward"] == per_pass * steps,
+          f"msda_backward launched {train_launches['msda_backward']} times "
+          f"in {steps} steps from raw frames, expected {per_pass} per step")
+    check(train_launches["msda_forward"] == per_pass * (steps + n_eval),
+          f"msda_forward launched {train_launches['msda_forward']} times in"
+          f" {steps} steps and {n_eval} eval batches, expected {per_pass} "
+          f"per step and per eval batch")
+    losses = [h["loss_total"] for h in hist]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(res["checkpoint"] and os.path.exists(res["checkpoint"]),
+          "no checkpoint written")
+    check(math.isfinite(res["eval"]["loss_total"]), "eval loss not finite")
+    step_ms = statistics.median(h["seconds"] for h in hist[2:]) * 1e3
+    period_ms = statistics.median(h["seconds"] + h["data_seconds"]
+                                  for h in hist[2:]) * 1e3
+    wait_ms = statistics.median(h["data_seconds"] for h in hist[2:]) * 1e3
+    # one profiled bf16 step from the raw batch of (a): warp + forward +
+    # criterion + backward + update
+    model = build_model(cfg, device="cuda", seed=cfg.seed)
+    state = create_train_state(cfg, model)
+    crit, gen = SetCriterion(cfg), torch.Generator().manual_seed(0)
+    bd = breakdown(lambda: train_step(state, crit, dev, gen), top=6,
+                   need=("msda_forward", "msda_backward"))
+    del model, state
+    torch.cuda.empty_cache()
+    log(f"training from PoseTrack18-format files with --device_preprocess "
+        f"(canonical_t4_f2 b2 bf16, {card}): {steps} steps + {n_eval} eval "
+        f"batches; msda_forward {train_launches['msda_forward']} launches, "
+        f"msda_backward {train_launches['msda_backward']} ({per_pass} per "
+        f"step); step {step_ms:.2f} ms, waiting for the batch {wait_ms:.2f}"
+        f" ms, period {period_ms:.2f} ms, {2e3 / period_ms:.3f} samples/s "
+        f"(median, first two steps excluded); losses "
+        f"{[round(x, 4) for x in losses]}; one profiled step from raw "
+        f"frames: wall {bd['wall_ms']:.2f} ms, kernels "
+        f"{bd['device_ms']:.2f} ms, busy share {bd['busy_share']:.3f}")
+
+    # ---- (c) training with the host warp --------------------------------
+    res_host = train_cli.main([
+        "--preset", "canonical_t4_f2", "--batch_size", "2",
+        "--posetrack_dir", root, "--epochs", "1", "--eval_every", "5",
+        "--steps_per_epoch", str(host_steps), "--output_dir",
+        os.path.join(work, "train_real_host"), "--device", "cuda"])
+    hh = res_host["history"]
+    check(len(hh) == host_steps and all(
+        math.isfinite(h["loss_total"]) for h in hh), "host-warp run")
+    host_step_ms = statistics.median(h["seconds"] for h in hh[1:]) * 1e3
+    host_period_ms = statistics.median(h["seconds"] + h["data_seconds"]
+                                       for h in hh[1:]) * 1e3
+    paths = [os.path.join(root, f) for i in pick
+             for f in ds_host[i]["targets"]["filenames"][:cfg.num_frames]]
+    decode_ms = host_ms(lambda: [_read_rgb(p) for p in paths], reps=3)
+    raw_getter_ms = host_ms(lambda: [ds_dev[i] for i in pick], reps=3)
+    host_getter_ms = host_ms(lambda: [ds_host[i] for i in pick], reps=3)
+    log(f"training with the host warp ({card}): step {host_step_ms:.2f} ms,"
+        f" period {host_period_ms:.2f} ms, {2e3 / host_period_ms:.3f} "
+        f"samples/s (median, first step excluded; 2 decode threads); one "
+        f"batch of 2 on one host thread: decode of its {len(paths)} frames "
+        f"{decode_ms:.2f} ms, samples without the warp {raw_getter_ms:.2f} "
+        f"ms, with the host warp {host_getter_ms:.2f} ms (warp "
+        f"{host_getter_ms - raw_getter_ms:.2f} ms; host clock, median)")
+
+    # ---- (d) eval on the files with the harness, counts at 0 ------------
+    out_eval = os.path.join(work, "eval_real")
+    ms_deform_attn.launches = 0
+    ms_deform_attn.backward_launches = 0
+    ev = eval_cli.main([
+        "--preset", "canonical_t4_f2", "--batch_size", "2",
+        "--posetrack_dir", root, "--posetrack_gt_dir", gt_dir,
+        "--write_posetrack", "--resume", res["checkpoint"],
+        "--output_dir", out_eval, "--device", "cuda"])
+    eval_launches = {"msda_forward": ms_deform_attn.launches,
+                     "msda_backward": ms_deform_attn.backward_launches}
+    # ----------------------------------------------------------------------
+    n = ev["batches"]
+    check(n > 0 and eval_launches["msda_forward"] == per_pass * n
+          and eval_launches["msda_backward"] == 0,
+          f"eval launches {eval_launches} over {n} batches, expected "
+          f"{per_pass} msda_forward per batch")
+    with open(os.path.join(out_eval, "eval_stats.json")) as f:
+        stats = json.load(f)
+    bad = {k: v for k, v in stats.items() if not math.isfinite(v)}
+    ap_keys = sorted(k for k in stats if k.startswith("posetrack_ap_"))
+    check(not bad and ap_keys and "loss_total" in stats,
+          f"eval_stats.json: {stats}")
+    eval_ms = statistics.median(ev["batch_ms"][1:])
+    log(f"eval from PoseTrack18-format files ({card}): {n} batches of 2, "
+        f"msda_forward {eval_launches['msda_forward']} launches ({per_pass}"
+        f" per batch); {eval_ms:.2f} ms per batch (median, first excluded);"
+        f" {len(stats)} finite stats, {len(ap_keys)} posetrack_ap_* keys "
+        f"(posetrack_ap_ap {stats.get('posetrack_ap_ap')})")
+    del dev
+    torch.cuda.empty_cache()
+    return dict(train_launches=train_launches, eval_launches=eval_launches,
+                steps=steps, eval_batches=n_eval, warp_err=warp_err,
+                warp_ms=warp_ms, warp_device_ms=warp_device_ms,
+                step_ms=step_ms, period_ms=period_ms, wait_ms=wait_ms,
+                samples_per_s=2e3 / period_ms, losses=losses,
+                busy_share=bd["busy_share"], profiled_step=bd,
+                host_step_ms=host_step_ms, host_period_ms=host_period_ms,
+                decode_ms=decode_ms, raw_getter_ms=raw_getter_ms,
+                host_getter_ms=host_getter_ms, eval_batches_real=n,
+                eval_ms=eval_ms, posetrack_ap_keys=ap_keys)
 
 
 def phase_harness(work, n_frames=4):
@@ -1522,7 +1802,8 @@ def phase_train_agreement(tol_loss=1e-4, tol_grad=1e-3):
     torch.backends.cudnn.allow_tf32 = True
     state = create_train_state(cfg, model)
     gen = torch.Generator().manual_seed(0)
-    bd = breakdown(lambda: train_step(state, crit, batch, gen), top=10)
+    bd = breakdown(lambda: train_step(state, crit, batch, gen), top=10,
+                   need=("msda_forward", "msda_backward"))
     log(f"one canonical_t4_f2 b2 bf16 train step (cuDNN TF32 on): wall "
         f"{bd['wall_ms']:.2f} ms (CUDA events), device kernels "
         f"{bd['device_ms']:.2f} ms (torch.profiler), busy share "
@@ -1601,6 +1882,8 @@ def main() -> int:
         # 5. the training path, then the eval CLI on its checkpoint
         train_res = phase_train(work)
         eval_res = phase_eval(work, train_res["checkpoint"])
+        # 5a. training and eval from reference-format files
+        real_res = phase_train_real(work, card)
         # 5b. the PoseTrack/COCO harness
         harness_res = phase_harness(work)
     # 6. a train step, kernels against the plain MSDA
@@ -1633,6 +1916,8 @@ def main() -> int:
         "per_train_forward_launches": train_res["per_forward"],
         "eval_launches": eval_res["launches"]["msda_forward"],
         "per_eval_batch_launches": eval_res["per_batch"],
+        "real_train_launches": real_res["train_launches"]["msda_forward"],
+        "real_eval_launches": real_res["eval_launches"]["msda_forward"],
         "shapes": shapes_res,
     }, {
         "name": "msda_backward",
@@ -1652,6 +1937,8 @@ def main() -> int:
         "at": "train encoder shape, f32: N=8 Lq=9875 H=8 D=48 L=3 P=4",
         "ptxas": ptxas["msda_backward"],
         "per_train_step_launches": train_res["per_step"],
+        "real_train_launches": real_res["train_launches"]["msda_backward"],
+        "real_eval_launches": real_res["eval_launches"]["msda_backward"],
         "shapes": bwd_res,
     }]
     k2 = win_res["win2d_sample"]
@@ -1718,9 +2005,12 @@ def main() -> int:
         f"eval {eval_res['batch_ms']:.2f} ms/batch; harness AP "
         f"{harness_res['posetrack_ap']:g} MOTA "
         f"{harness_res['posetrack_mota']:g}; training "
-        f"path {train_res['step_ms']:.2f} ms/step, "
+        f"path period {train_res['period_ms']:.2f} ms/step, "
         f"{train_res['samples_per_s']:.3f} samples/s, peak "
-        f"{train_res['peak_gb']:.2f} GB; train step kernels vs plain: "
+        f"{train_res['peak_gb']:.2f} GB; from PoseTrack18-format files "
+        f"{real_res['period_ms']:.2f} ms/step with --device_preprocess, "
+        f"{real_res['host_period_ms']:.2f} with the host warp; train step "
+        f"kernels vs plain: "
         f"gradients within {agree_res['grad_worst_rel']:.3e} of scale; "
         f"probe op windowed2d_pallas {probe_res['op_ms']['windowed2d_pallas']}"
         f" ms/op-call (relerr {probe_res['relerr']:.2e}); "

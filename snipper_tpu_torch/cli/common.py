@@ -53,18 +53,19 @@ def build_config(args) -> Config:
         raise SystemExit(str(e)) from e
 
 
-# dataset flags of the JAX CLI whose loaders are not ported yet: the real
-# datasets are not in the repository
-DATASET_FLAGS = ("posetrack_dir", "coco_dir", "muco_dir", "jta_dir",
-                "panoptic_dir", "panoptic_protocol")
-
-
 def add_data_args(parser: argparse.ArgumentParser):
     parser.add_argument("--preset", type=str, default=None,
                         help=f"Config preset: {', '.join(PRESETS)}")
+    parser.add_argument("--posetrack_dir", type=str, default=None)
+    parser.add_argument("--coco_dir", type=str, default=None)
+    parser.add_argument("--muco_dir", type=str, default=None)
+    parser.add_argument("--jta_dir", type=str, default=None)
+    parser.add_argument("--panoptic_dir", type=str, default=None)
+    parser.add_argument("--panoptic_protocol", type=int, default=1)
     parser.add_argument("--synthetic", action="store_true",
-                        help="use the synthetic dataset (the default: the "
-                             "real datasets' loaders are not ported)")
+                        help="use the synthetic dataset (smoke/benchmark; "
+                             "the default when no dataset directory is "
+                             "given)")
     parser.add_argument("--synthetic_samples", type=int, default=None,
                         help="synthetic dataset size (default 64 train / "
                              "8 val)")
@@ -86,15 +87,36 @@ def add_data_args(parser: argparse.ArgumentParser):
                              "only the backbone")
     parser.add_argument("--steps_per_epoch", type=int, default=None)
     parser.add_argument("--num_workers", type=int, default=2,
-                        help="threads rendering/decoding a batch's samples "
+                        help="threads decoding/warping a batch's samples "
                              "(0 = inline)")
 
 
-def build_dataset(cfg: Config, args, mode: str):
-    """The synthetic dataset for ``mode`` ("train" or "val")."""
-    from snipper_tpu_torch.data.synthetic import SyntheticDataset
+def build_dataset(cfg: Config, args, mode: str,
+                  device_preprocess: bool = False):
+    """The dataset for ``mode`` ("train" or "val"): ``HybridDataset`` over
+    the dataset directories given, or the synthetic set when none is (or
+    with ``--synthetic``). ``device_preprocess``: the real datasets emit
+    raw frames for the warp inside the train step; the synthetic set
+    ignores it, as the JAX CLI does."""
+    if args.synthetic or not any((args.posetrack_dir, args.coco_dir,
+                                  args.muco_dir, args.jta_dir,
+                                  args.panoptic_dir)):
+        from snipper_tpu_torch.data.synthetic import SyntheticDataset
 
-    n = args.synthetic_samples or (64 if mode == "train" else 8)
-    return SyntheticDataset(
-        cfg, n_samples=n, seed=0 if (mode == "train" or args.overfit) else 1,
-        distinct=args.synthetic_distinct)
+        n = args.synthetic_samples or (64 if mode == "train" else 8)
+        if device_preprocess:
+            print("NOTE: --device_preprocess ignored for the synthetic "
+                  "dataset (it renders pre-warped frames directly)",
+                  flush=True)
+        return SyntheticDataset(
+            cfg, n_samples=n,
+            seed=0 if (mode == "train" or args.overfit) else 1,
+            distinct=args.synthetic_distinct)
+    from snipper_tpu_torch.data.datasets import HybridDataset
+
+    return HybridDataset(
+        cfg, mode=mode, posetrack_dir=args.posetrack_dir,
+        coco_dir=args.coco_dir, muco_dir=args.muco_dir,
+        jta_dir=args.jta_dir, panoptic_dir=args.panoptic_dir,
+        panoptic_protocol=args.panoptic_protocol,
+        device_preprocess=device_preprocess)

@@ -4,13 +4,16 @@ reference ``eval.py``): loads a checkpoint, runs the eval loop, writes
 result files and their scores.
 
     python -m snipper_tpu_torch.cli.eval --preset canonical_t4_f2 \\
-        --synthetic --resume CKPT.pt --output_dir OUT \\
+        --posetrack_dir DIR [--muco_dir DIR --coco_dir DIR --jta_dir DIR \\
+        --panoptic_dir DIR] --resume CKPT.pt --output_dir OUT \\
         [--save_vis] [--write_posetrack [--posetrack_gt_dir DIR]] \\
         [--coco_gt_json GT.json]
 
 Runs on the GPU unless ``--device cpu`` is given; the forward runs in f32.
-Data is the synthetic dataset: the real datasets' loaders are not ported,
-and their flags are refused. ``--deform_impl`` is accepted and ignored:
+Data is the validation split of the reference-format directories given
+(``--muco_dir`` evaluates MuPoTS), or the synthetic set when none is
+(``--synthetic``). ``--fast`` is not ported yet and is refused.
+``--deform_impl`` is accepted and ignored:
 the port's model always samples with the exact ``msda_forward``.
 ``--save_vis`` writes ``{output_dir}/eval_vis/eval_b{batch}_s{i}.jpg``
 for the first two batches.
@@ -25,16 +28,15 @@ import time
 
 import numpy as np
 
-from snipper_tpu_torch.cli.common import (DATASET_FLAGS, add_config_args,
-                                          add_data_args, build_config,
-                                          build_dataset)
+from snipper_tpu_torch.cli.common import (add_config_args, add_data_args,
+                                          build_config, build_dataset)
 from snipper_tpu_torch.data.loader import DataLoader
 from snipper_tpu_torch.losses.criterion import SetCriterion
 from snipper_tpu_torch.models.snipper import build_model, resolve_device
 from snipper_tpu_torch.train.engine import evaluate
 
 # flags of the JAX CLI that this port does not have yet
-NOT_PORTED = DATASET_FLAGS + ("fast",)
+NOT_PORTED = ("fast",)
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -2,15 +2,23 @@
 reference ``main.py``).
 
     python -m snipper_tpu_torch.cli.train --preset canonical_t4_f2 \\
-        --synthetic --output_dir OUT [--epochs N --steps_per_epoch S]
+        --posetrack_dir DIR [--coco_dir DIR --muco_dir DIR --jta_dir DIR \\
+        --panoptic_dir DIR --panoptic_protocol 1|2] [--device_preprocess] \\
+        --output_dir OUT [--epochs N --steps_per_epoch S]
+    python -m snipper_tpu_torch.cli.train --preset tiny --synthetic ...
 
 Runs on the GPU unless ``--device cpu`` is given, with bf16 mixed precision
 (f32 master weights and losses) unless ``--no-mixed_precision``. Each
 epoch ends with a checkpoint, ``{output_dir}/ckpts/checkpoint{epoch:04d}.pt``,
 and every ``--eval_every`` epochs with an evaluation on the validation
 set; both go into ``{output_dir}/log.txt`` as one JSON line per epoch.
-Training data is the synthetic dataset: the real datasets' loaders are not
-ported, and their flags are refused.
+Training data is read from the reference-format directories given (the
+files ``snipper_tpu_torch.data.preprocess`` writes), or is the synthetic
+set when none is. ``--device_preprocess`` has the loader emit the raw
+uint8 frames with their warp parameters and warps them inside the train
+step on the device; the validation set is always warped on the host.
+``--profile_dir`` and ``--profile_steps`` are not ported yet and are
+refused.
 """
 
 from __future__ import annotations
@@ -22,9 +30,8 @@ import time
 
 import torch
 
-from snipper_tpu_torch.cli.common import (DATASET_FLAGS, add_config_args,
-                                          add_data_args, build_config,
-                                          build_dataset)
+from snipper_tpu_torch.cli.common import (add_config_args, add_data_args,
+                                          build_config, build_dataset)
 from snipper_tpu_torch.data.loader import DataLoader
 from snipper_tpu_torch.losses.criterion import SetCriterion
 from snipper_tpu_torch.models.snipper import build_model, resolve_device
@@ -37,8 +44,7 @@ from snipper_tpu_torch.train.preemption import PreemptionGuard
 from snipper_tpu_torch.train.state import create_train_state
 
 # flags of the JAX CLI that this port does not have yet
-NOT_PORTED = DATASET_FLAGS + ("device_preprocess", "profile_dir",
-                             "profile_steps")
+NOT_PORTED = ("profile_dir", "profile_steps")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -46,6 +52,11 @@ def build_parser() -> argparse.ArgumentParser:
     add_config_args(parser)
     add_data_args(parser)
     parser.add_argument("--eval_every", type=int, default=1)
+    parser.add_argument("--device_preprocess", action="store_true",
+                        help="warp/flip/color the training frames on the "
+                             "device inside the train step (the host only "
+                             "decodes); the host path's results "
+                             "(data/device_preprocess.py)")
     parser.add_argument("--mixed_precision",
                         action=argparse.BooleanOptionalAction, default=True,
                         help="bf16 autocast with f32 master weights and "
@@ -74,11 +85,17 @@ def main(argv=None) -> dict:
     os.makedirs(args.output_dir, exist_ok=True)
     print(f"config: {cfg}", flush=True)
 
-    train_loader = DataLoader(build_dataset(cfg, args, "train"),
-                              cfg.batch_size, shuffle=True, seed=cfg.seed,
-                              num_workers=args.num_workers)
-    val_loader = DataLoader(build_dataset(cfg, args, "val"), cfg.batch_size,
-                            shuffle=False, num_workers=args.num_workers)
+    train_ds = build_dataset(cfg, args, "train",
+                             device_preprocess=args.device_preprocess)
+    # the val loader always warps on the host (JAX cli/train.py:69-71)
+    val_ds = build_dataset(cfg, args, "val")
+    # the train batches are pinned in the loader's thread, so that
+    # device_prefetch's copy does not block; the eval pins in batch_to_device
+    train_loader = DataLoader(train_ds, cfg.batch_size, shuffle=True,
+                              seed=cfg.seed, num_workers=args.num_workers,
+                              pin_memory=device.type == "cuda")
+    val_loader = DataLoader(val_ds, cfg.batch_size, shuffle=False,
+                            num_workers=args.num_workers)
     steps_per_epoch = args.steps_per_epoch or max(len(train_loader), 1)
     if steps_per_epoch % cfg.grad_accum_steps:
         print(f"WARNING: steps_per_epoch {steps_per_epoch} is not a "

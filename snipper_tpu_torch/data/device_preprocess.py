@@ -1,5 +1,6 @@
-"""The inference warp on the device: the port's own copy of
-``snipper_tpu/data/device_preprocess.py:35-95``.
+"""The warps on the device: the port's own copy of
+``snipper_tpu/data/device_preprocess.py``, the inference warp (``:35-95``)
+and the train warp (``:98-154``).
 
 The host pipeline (``infer/pipeline.py::iter_snippet_samples``) warps each
 frame with the numpy ``data/transforms.py::warp_affine``; with
@@ -110,3 +111,56 @@ def preprocess_snippet_device(raw_imgs, trans: np.ndarray,
         x = x.to(device, non_blocking=True)
     return warp_affine_device(x, invert_axis_aligned(trans),
                               tuple(input_shape))
+
+
+def warp_train_batch_device(raw: torch.Tensor, inv: torch.Tensor,
+                            color: torch.Tensor,
+                            out_shape: Tuple[int, int]) -> torch.Tensor:
+    """The train warp on the tensors' device: flip (folded into ``inv`` by
+    ``transforms.fold_flip_inverse``) + rotated bilinear warp + /255 +
+    per-channel color scale + clip, the device counterpart of the host
+    ``native_ops.warp_patch`` (reference ``generate_patch_image`` + color
+    jitter, ``datasets/transforms.py:137-144``).
+
+    ``raw [B, T, H, W, 3]`` uint8, zero-padded to the batch's shared shape
+    (the zero pad is the warp's zero border: the valid test uses the padded
+    ``H`` and ``W``, as JAX's does), ``inv [B, T, 2, 3]`` dst -> src
+    affines, ``color [B, 3]``. Returns float32 ``[B, T, out_h, out_w, 3]``
+    in [0, 1].
+
+    The train augmentation rotates (±25°, ``get_aug_config``), so the
+    separable inference warp does not apply: each output pixel gathers
+    its four corners over the flattened frame with int64 indices, one
+    corner at a time, and blends them in f32 in JAX's order. The corners
+    are gathered from the uint8 frames and converted after the gather
+    (the same values as JAX's gather from an f32 copy, without that copy
+    of the padded frames)."""
+    out_h, out_w = out_shape
+    B, T, H, W, C = raw.shape
+    dev = raw.device
+    xs = torch.arange(out_w, dtype=torch.float32, device=dev)
+    ys = torch.arange(out_h, dtype=torch.float32, device=dev)
+    m = inv.to(torch.float32)[..., None, None]      # [B, T, 2, 3, 1, 1]
+    sx = m[:, :, 0, 0] * xs + m[:, :, 0, 1] * ys[:, None] + m[:, :, 0, 2]
+    sy = m[:, :, 1, 0] * xs + m[:, :, 1, 1] * ys[:, None] + m[:, :, 1, 2]
+    x0 = torch.floor(sx)
+    y0 = torch.floor(sy)
+    fx = sx - x0
+    fy = sy - y0
+    flat = raw.reshape(B, T, H * W, C)
+    out = torch.zeros((B, T, out_h, out_w, C), dtype=torch.float32,
+                      device=dev)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            xi = x0 + dx
+            yi = y0 + dy
+            valid = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+            idx = (yi.clamp(0, H - 1).to(torch.int64) * W
+                   + xi.clamp(0, W - 1).to(torch.int64))
+            g = torch.gather(flat, 2, idx.reshape(B, T, -1, 1).expand(
+                B, T, out_h * out_w, C)).to(torch.float32)
+            w = ((fx if dx else 1.0 - fx) * (fy if dy else 1.0 - fy)
+                 * valid)
+            out = out + w[..., None] * g.reshape(B, T, out_h, out_w, C)
+    out = out / 255.0 * color.to(torch.float32)[:, None, None, None, :]
+    return torch.clamp(out, 0.0, 1.0)

@@ -130,20 +130,27 @@ def time_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=10):
-    """Device time of every kernel ``fn`` launches, per call."""
+def device_ms(fn, reps=10, tries=3):
+    """Device time of every kernel ``fn`` launches, per call. A profile
+    that recorded no device time (the profiler dropped its events) is
+    taken again; after ``tries`` it raises rather than report 0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / reps
+    raise RuntimeError(f"torch.profiler recorded no device time in {tries} "
+                       f"profiles")
 
 
 def turns(label, fn, module, libs):

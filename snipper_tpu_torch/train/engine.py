@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from snipper_tpu_torch.config import Config
+from snipper_tpu_torch.data.loader import device_prefetch
 from snipper_tpu_torch.eval.metrics import eval_kpts2d_pckh, eval_pose3d
 from snipper_tpu_torch.infer.postprocess import postprocess
 from snipper_tpu_torch.train.step import batch_to_device, eval_step, \
@@ -72,15 +73,23 @@ def train_one_epoch(state, criterion, loader, epoch: int,
                     stop_flag: Optional[Callable[[], bool]] = None,
                     max_steps: Optional[int] = None,
                     grad_accum_steps: int = 1):
-    """``max_steps``: stop the epoch after N steps. Returns ``(stats,
-    history)``: the epoch's mean of each metric and, per step, its metrics
-    and its host time in seconds (the step ends with the metrics read, so
-    the card has finished it)."""
+    """``max_steps``: stop the epoch after N steps. Batches reach the card
+    through ``device_prefetch`` (JAX ``train/engine.py:117-126``): the next
+    batch's copy is issued, on a side stream on a card, before the current
+    step runs. Returns ``(stats, history)``: the epoch's mean of each
+    metric and, per step, its metrics, its host time in seconds (the step
+    ends with the metrics read, so the card has finished it) and
+    ``data_seconds``, the host time spent waiting for its batch (the
+    loader, and issuing the next batch's copy)."""
     logger = MetricLogger()
     history: List[Dict[str, float]] = []
     iterable = iter(loader)
     if grad_accum_steps > 1:
         iterable = inject_window_num_traj(iterable, grad_accum_steps)
+    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    iterable = device_prefetch(
+        iterable, lambda b: batch_to_device(b, device), stream=stream)
+    t_data = time.perf_counter()
     for i, batch in enumerate(logger.log_every(iterable, print_freq,
                                                f"Epoch: [{epoch}]")):
         if max_steps is not None and i >= max_steps:
@@ -91,9 +100,11 @@ def train_one_epoch(state, criterion, loader, epoch: int,
             break
         t0 = time.perf_counter()
         metrics = _read_scalars(train_step(
-            state, criterion, batch_to_device(batch, device), generator,
+            state, criterion, batch, generator,
             mixed_precision=mixed_precision))
-        history.append(dict(metrics, seconds=time.perf_counter() - t0))
+        t_data, data_s = time.perf_counter(), t0 - t_data
+        history.append(dict(metrics, seconds=t_data - t0,
+                            data_seconds=data_s))
         loss = metrics["loss_total"]
         if not np.isfinite(loss):
             print(f"Loss is {loss}, stopping training", flush=True)

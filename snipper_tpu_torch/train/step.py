@@ -23,24 +23,32 @@ from typing import Dict
 
 import torch
 
+from snipper_tpu_torch.data.device_preprocess import warp_train_batch_device
 from snipper_tpu_torch.losses.criterion import SetCriterion
 from snipper_tpu_torch.train.state import TrainState
 
 
+# the step inputs of a host batch: finished images, or the raw uint8
+# frames with their warp parameters (``device_preprocess``)
+INPUT_KEYS = ("images", "raw_images", "warp_inv", "color_scale", "num_traj")
+
+
 def batch_to_device(batch: Dict, device: torch.device) -> Dict:
-    """The model inputs of a host batch (``images``, ``targets``,
-    ``num_traj``) as tensors on ``device``; copies to a card go from
-    pinned memory without blocking."""
+    """The step inputs of a host batch (``images``, or ``raw_images``,
+    ``warp_inv`` and ``color_scale``; ``targets``; ``num_traj``) as tensors
+    on ``device``. Copies to a card go from pinned memory without blocking:
+    the train loader pins its batches (``DataLoader(pin_memory=True)``),
+    and an array of a loader that does not, as the eval's, is pinned here."""
     def put(x):
         t = torch.as_tensor(x)
         if device.type == "cuda":
-            return t.pin_memory().to(device, non_blocking=True)
+            if not t.is_pinned():
+                t = t.pin_memory()
+            return t.to(device, non_blocking=True)
         return t.to(device)
 
-    out = {"images": put(batch["images"]),
-           "targets": {k: put(v) for k, v in batch["targets"].items()}}
-    if "num_traj" in batch:
-        out["num_traj"] = put(batch["num_traj"])
+    out = {k: put(batch[k]) for k in INPUT_KEYS if k in batch}
+    out["targets"] = {k: put(v) for k, v in batch["targets"].items()}
     return out
 
 
@@ -48,8 +56,15 @@ def forward_loss(model, criterion: SetCriterion, batch: Dict,
                  mixed_precision: bool):
     """``(total, losses, outputs, src_idx)`` of one batch on the model's
     current mode; the network under bf16 autocast when
-    ``mixed_precision``, the criterion in f32 outside it."""
-    images = batch["images"]
+    ``mixed_precision``, the criterion in f32 outside it. A batch of raw
+    frames is warped first, in f32 outside autocast, so only the model
+    sees bf16."""
+    if "raw_images" in batch:  # JAX train/step.py:77-89
+        images = warp_train_batch_device(
+            batch["raw_images"], batch["warp_inv"], batch["color_scale"],
+            criterion.cfg.input_shape)
+    else:
+        images = batch["images"]
     with torch.autocast(images.device.type, dtype=torch.bfloat16,
                         enabled=mixed_precision):
         out = model(images, batch.get("mask"))
@@ -74,7 +89,7 @@ def train_step(state: TrainState, criterion: SetCriterion, batch: Dict,
     model, cfg = state.model, state.cfg
     model.train()
     seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
-    dev = batch["images"].device
+    dev = batch["targets"]["valid"].device
     with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
         torch.manual_seed(seed)
         total, losses, out, _ = forward_loss(model, criterion, batch,

@@ -1,9 +1,9 @@
 """The CUDA kernels ``msda_forward``, ``msda_backward``, ``win2d_sample``,
 ``win2d_contract``, ``hier_gather``, ``chain_gather`` and ``chain_select``
-against their plain PyTorch versions, and the device warp, ``cli.infer
---device_preprocess`` and ``cli.eval`` on the card against the CPU, on a
-CUDA card. Without one, every test here skips (the kernels have no CPU
-mode).
+against their plain PyTorch versions, and the device warps, ``cli.infer
+--device_preprocess``, ``cli.eval``, a train step from raw frames and the
+side-stream prefetch on the card against the CPU, on a CUDA card. Without
+one, every test here skips (the kernels have no CPU mode).
 
 This file imports nothing of JAX, so it also runs on a GPU host without
 JAX (tests/conftest.py imports JAX, hence ``--noconftest``):
@@ -414,6 +414,106 @@ def test_cli_eval_cuda_matches_cpu(cuda, tmp_path):
     for k, v in stats["cpu"].items():
         np.testing.assert_allclose(stats["cuda"][k], v, rtol=1e-4,
                                    atol=1e-6, err_msg=k)
+
+
+# ------------------------------- training from raw frames with the warp on
+def _raw_batch(rng, B=2, T=2, sizes=((90, 120), (130, 260)), out=(64, 96)):
+    """A stacked raw batch of frames of two sizes (zero-padded to
+    128-multiples) with rotated, flipped and colour-jittered warps and
+    padded targets, as ``stack_batch`` collates a device-preprocess
+    loader's samples."""
+    from snipper_tpu_torch.data.snippet import stack_batch
+    from snipper_tpu_torch.data.transforms import (fold_flip_inverse,
+                                                   gen_trans_from_patch)
+
+    samples = []
+    for b in range(B):
+        h, w = sizes[b % len(sizes)]
+        trans = gen_trans_from_patch(w / 2, h / 2, 1.3 * w, 1.3 * h,
+                                     out[1], out[0], [17.0, -25.0][b % 2])
+        kpts = np.zeros((4, T + 1, 15, 3), np.float32)
+        kpts[:2, ..., :2] = rng.uniform(0.2, 0.8, (2, T + 1, 15, 2))
+        kpts[:2, ..., 2] = 1.0
+        depth = np.zeros((4, T + 1, 15, 2), np.float32)
+        samples.append({
+            "raw_images": rng.integers(0, 256, (T, h, w, 3), np.uint8),
+            "warp_inv": np.repeat(fold_flip_inverse(trans, b % 2 == 1, w)
+                                  [None], T, 0),
+            "color_scale": np.array([1.2, 0.8, 1.1], np.float32),
+            "targets": {"kpts2d": kpts, "depth": depth,
+                        "valid": np.array([True, True, False, False])}})
+    return stack_batch(samples)
+
+
+def test_train_warp_cuda_matches_cpu(cuda):
+    """``warp_train_batch_device`` on the card against the CPU within 1e-5
+    (f32 gathers and blends of the same terms), frames copied from pinned
+    memory."""
+    from snipper_tpu_torch.data.device_preprocess import \
+        warp_train_batch_device
+
+    for shape, B in (((64, 96), 2), ((600, 800), 2)):
+        batch = _raw_batch(np.random.default_rng(B + shape[0]), B=B,
+                           out=shape, sizes=((720, 1280), (1080, 1920))
+                           if shape[0] == 600 else ((90, 120), (130, 260)))
+        args = [torch.from_numpy(batch[k]) for k in
+                ("raw_images", "warp_inv", "color_scale")]
+        got = warp_train_batch_device(
+            *[a.pin_memory().to(cuda, non_blocking=True) for a in args],
+            shape)
+        want = warp_train_batch_device(*args, shape)
+        assert got.is_cuda and got.dtype == torch.float32
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
+def test_prefetch_side_stream_delivers_the_batches(cuda):
+    """``pin_batch`` + ``device_prefetch`` with a side stream: every batch
+    arrives on the card in order and equal to its host copy, while a
+    kernel on the current stream runs between the copies."""
+    from snipper_tpu_torch.data.loader import device_prefetch, pin_batch
+    from snipper_tpu_torch.train.step import batch_to_device
+
+    rng = np.random.default_rng(3)
+    host = [_raw_batch(rng) for _ in range(4)]
+    pinned = [pin_batch(b) for b in host]
+    assert all(pinned[0][k].is_pinned() for k in
+               ("raw_images", "warp_inv", "color_scale"))
+    side = torch.cuda.Stream(cuda)
+    busy = torch.randn(2048, 2048, device=cuda)
+    got = []
+    for b in device_prefetch(iter(pinned),
+                             lambda x: batch_to_device(x, cuda), side):
+        busy = busy @ busy / 2048.0  # work on the current stream
+        got.append({k: v.cpu() for k, v in b.items() if k != "targets"})
+    assert len(got) == len(host)
+    for g, h in zip(got, host):
+        for k in ("raw_images", "warp_inv", "color_scale"):
+            np.testing.assert_array_equal(g[k].numpy(), h[k])
+
+
+def test_bf16_train_step_from_raw_batch(cuda):
+    """A bf16 mixed-precision train step at the tiny preset from a raw
+    batch on the card: the warp runs in f32 inside the step, losses and
+    gradient norm are finite, and 12 launches are counted per kernel
+    (enc + dec layers), forward and backward."""
+    from snipper_tpu_torch.losses.criterion import SetCriterion
+    from snipper_tpu_torch.train.state import create_train_state
+    from snipper_tpu_torch.train.step import batch_to_device, train_step
+
+    cfg = Config.tiny().replace(batch_size=2)
+    batch = batch_to_device(_raw_batch(np.random.default_rng(5)), cuda)
+    model = build_model(cfg, device=cuda, seed=2)
+    state = create_train_state(cfg, model, steps_per_epoch=4)
+    fwd, bwd = ms_deform_attn.launches, ms_deform_attn.backward_launches
+    metrics = train_step(state, SetCriterion(cfg), batch,
+                         torch.Generator().manual_seed(0),
+                         mixed_precision=True)
+    vals = {k: v.item() for k, v in metrics.items()}
+    assert all(np.isfinite(v) for v in vals.values()), vals
+    assert vals["grad_norm"] > 0
+    n = cfg.enc_layers + cfg.dec_layers
+    assert ms_deform_attn.launches - fwd == n
+    assert ms_deform_attn.backward_launches - bwd == n
 
 
 # ------------------------------------------- windowed sampling and the probe

@@ -149,6 +149,189 @@ def test_eval_defaults_to_cuda_and_raises_without_it(tmp_path):
                        str(tmp_path)])
 
 
+# ------------------------------------- the eval CLI on reference-format files
+# copies of tests/test_eval_rehearsal.py's raw-file writers
+K17 = 17
+
+
+def _img(path, w=160, h=120):
+    from PIL import Image
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    rng = np.random.default_rng(abs(hash(path)) % 2 ** 31)
+    Image.fromarray(rng.integers(0, 255, (h, w, 3)).astype(np.uint8)
+                    ).save(path)
+
+
+def _posetrack_raw(root, video="000001_x", n_frames=16):
+    """Reference-format PoseTrack18 val annotations + frames."""
+    rng = np.random.default_rng(3)
+    images, annotations = [], []
+    base = {0: rng.uniform(20, 60, (K17, 2)),
+            1: rng.uniform(80, 140, (K17, 2))}
+    for i in range(n_frames):
+        fn = f"images/val/{video}/{i:06d}.jpg"
+        _img(str(root / fn))
+        images.append({"id": 1000 + i, "file_name": fn, "is_labeled": True,
+                       "vid_id": video, "frame_id": i})
+        for tid in (0, 1):
+            k = np.concatenate(
+                [base[tid] + rng.uniform(-2, 2, (K17, 2)),
+                 np.ones((K17, 1))], 1)
+            annotations.append({
+                "image_id": 1000 + i,
+                "keypoints": k.reshape(-1).tolist(),
+                "track_id": tid,
+                "bbox": [10.0 + 60 * tid, 10.0, 50.0, 80.0],
+                "bbox_head": [15.0 + 60 * tid, 10.0, 20.0, 20.0],
+            })
+    ann_dir = root / "annotations" / "val"
+    os.makedirs(ann_dir, exist_ok=True)
+    with open(ann_dir / f"{video}.json", "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": [{"id": 1, "name": "person"}]}, f)
+    return str(ann_dir)
+
+
+def _mupots_raw(root, n_frames=40):
+    rng = np.random.default_rng(4)
+    images, annotations = [], []
+    for i in range(n_frames):
+        fn = f"TS1/img_{i:06d}.jpg"
+        _img(str(root / "MuPoTS-3D_images" / fn))
+        images.append({"id": i, "file_name": fn, "width": 160, "height": 120,
+                       "intrinsic": [100.0, 100.0, 80.0, 60.0]})
+        for a in range(2):
+            k2 = rng.uniform(10, 150, (21, 2))
+            k3 = np.concatenate([rng.uniform(-500, 500, (21, 2)),
+                                 rng.uniform(2000, 8000, (21, 1))], 1)
+            annotations.append({
+                "image_id": i, "keypoints_img": k2.tolist(),
+                "keypoints_cam": k3.tolist(),
+                "keypoints_vis": [1.0] * 21,
+                "bbox": [10, 10, 50, 80]})
+    with open(root / "MuPoTS-3D.json", "w") as f:
+        json.dump({"images": images, "annotations": annotations}, f)
+
+
+def _coco_raw(root, n_images=3):
+    """Reference-format COCO person_keypoints_val2017 annotations + images.
+    Hips and shoulders visible so the root/neck synthesis works."""
+    rng = np.random.default_rng(5)
+    images, annotations = [], []
+    aid = 1
+    for i in range(n_images):
+        fn = f"{i:012d}.jpg"
+        _img(str(root / "val2017" / fn))
+        images.append({"id": 100 + i, "file_name": fn,
+                       "width": 160, "height": 120})
+        for _ in range(2):
+            k = np.concatenate([rng.uniform(20, 140, (17, 2)),
+                                np.full((17, 1), 2.0)], 1)
+            annotations.append({
+                "image_id": 100 + i, "id": aid, "category_id": 1,
+                "keypoints": k.reshape(-1).tolist(), "num_keypoints": 17,
+                "bbox": [20.0, 20.0, 60.0, 80.0], "area": 4800.0,
+                "iscrowd": 0})
+            aid += 1
+    os.makedirs(root / "annotations", exist_ok=True)
+    gt_json = str(root / "annotations" / "person_keypoints_val2017.json")
+    with open(gt_json, "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": [{"id": 1, "name": "person"}]}, f)
+    return gt_json
+
+
+def _reference_files(tmp_path, coco=False):
+    """PoseTrack val and MuPoTS (and COCO val) raw files, preprocessed by
+    the port's extractors; returns the dataset flags."""
+    from snipper_tpu_torch.data.preprocess import mscoco as coco_pp
+    from snipper_tpu_torch.data.preprocess import mupots as mupots_pp
+    from snipper_tpu_torch.data.preprocess import posetrack as pt_pp
+
+    pt_root, mp_root = tmp_path / "posetrack", tmp_path / "mupots"
+    os.makedirs(pt_root)
+    os.makedirs(mp_root)
+    gt_dir = _posetrack_raw(pt_root)
+    pt_pp.extract(str(pt_root), str(pt_root), subset="val")
+    _mupots_raw(mp_root)
+    mupots_pp.extract(str(mp_root), str(mp_root))
+    flags = ["--posetrack_dir", str(pt_root), "--muco_dir", str(mp_root),
+             "--write_posetrack", "--posetrack_gt_dir", gt_dir]
+    if coco:
+        coco_root = tmp_path / "coco"
+        os.makedirs(coco_root)
+        coco_gt = _coco_raw(coco_root)
+        coco_pp.extract(str(coco_root), str(coco_root), subset="val")
+        flags += ["--coco_dir", str(coco_root), "--coco_gt_json", coco_gt]
+    return flags
+
+
+def test_eval_on_reference_files_matches_jax(tmp_path):
+    """``cli.eval`` of both packages on one original-repo checkpoint over
+    on-disk PoseTrack val and MuPoTS files: ``eval_stats.json`` (the 3D
+    stats, PCKh and the PoseTrack harness keys) within 1e-4 relative, and
+    the same PoseTrack result files."""
+    from snipper_tpu.cli import eval as jax_cli
+    from snipper_tpu.config import Config as JaxConfig
+    from test_torch_parity import TorchSnipper, _reference_state_dict
+
+    torch.manual_seed(1)
+    sd = _reference_state_dict(TorchSnipper(JaxConfig.tiny()).eval())
+    ckpt = str(tmp_path / "ref.pth")
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}},
+               ckpt)
+    args = ["--preset", "tiny", "--num_workers", "0", "--deform_impl",
+            "xla", "--pretrained_torch", ckpt] + _reference_files(tmp_path)
+    out_t, out_j = str(tmp_path / "port"), str(tmp_path / "jax")
+    res = eval_cli.main(args + ["--output_dir", out_t, "--device", "cpu"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sys, "argv", ["eval"] + args + ["--output_dir", out_j])
+        jax_cli.main()
+    stats = []
+    for out in (out_t, out_j):
+        with open(os.path.join(out, "eval_stats.json")) as f:
+            stats.append(json.load(f))
+    got, want = stats
+    assert set(got) == set(want)
+    for key in ("mpjpe_root", "mpjpe_joint", "pel_mpjpe_joint", "3dpck",
+                "pckh_root", "pckh_joint", "posetrack_ap_ap",
+                "posetrack_tracking_mota"):
+        assert any(k.startswith(key) for k in got), (key, sorted(got))
+    for k in want:
+        assert np.isfinite(got[k]), k
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-7,
+                                   err_msg=k)
+    assert res["batches"] == len(res["batch_ms"]) > 3
+    assert _files(out_t) == _files(out_j)
+
+
+@pytest.mark.slow
+def test_full_eval_flow_on_reference_format_files(tmp_path):
+    """The port's twin of tests/test_eval_rehearsal.py's full flow: raw
+    PoseTrack18, MuPoTS and COCO files -> the port's extractors ->
+    ``cli.eval`` with the PoseTrack and COCO harnesses and the renders."""
+    out = str(tmp_path / "out")
+    eval_cli.main(["--preset", "tiny", "--save_vis", "--device", "cpu",
+                   "--output_dir", out] + _reference_files(tmp_path,
+                                                           coco=True))
+    with open(os.path.join(out, "eval_stats.json")) as f:
+        stats = json.load(f)
+    for key in ("mpjpe_root", "mpjpe_joint", "pel_mpjpe_joint", "3dpck",
+                "pckh_root", "pckh_joint"):
+        assert key in stats and np.isfinite(stats[key]), (key, stats)
+    for key in ("posetrack_ap_ap", "posetrack_tracking_mota",
+                "posetrack_pckh_pckh", "coco_AP"):
+        assert any(k.startswith(key) for k in stats), (key, sorted(stats))
+    pred = os.path.join(out, "posetrack_results", "000001_x.json")
+    with open(pred) as f:
+        data = json.load(f)
+    assert data["annotations"], "writer emitted no predictions"
+    assert len(data["annotations"][0]["keypoints"]) == K17 * 3
+    vis = os.listdir(os.path.join(out, "eval_vis"))
+    assert any(v.endswith(".jpg") for v in vis)
+
+
 # ------------------------------------------------------------- the harness
 def _frames(pt, frames):
     return [pt.Frame(f.kpts, f.track_ids, f.head_sizes, f.seq)

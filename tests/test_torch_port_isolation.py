@@ -4,7 +4,8 @@ A fresh interpreter imports every module of ``snipper_tpu_torch`` and
 ``chip_smoke``; no ``jax``, ``flax``, ``optax``, ``orbax`` or
 ``snipper_tpu`` module may end up in ``sys.modules``, and neither may
 matplotlib or PIL (the render and decode paths import them when they
-run). A source scan finds no such import statement.
+run). The walk takes in every subpackage, ``data/preprocess`` among them.
+A source scan finds no such import statement.
 """
 
 import json
@@ -59,7 +60,12 @@ def test_port_imports_no_jax_module():
                  "scripts.lanegather_probe", "scripts.kernel_ab",
                  "cli.eval", "data.device_preprocess", "infer.visualize",
                  "eval.posetrack_eval", "eval.coco_eval",
-                 "eval.posetrack_writer"):
+                 "eval.posetrack_writer", "data.datasets", "data.panoptic",
+                 "data.camera", "data.native_ops", "data.preprocess",
+                 "data.preprocess.common", "data.preprocess.posetrack",
+                 "data.preprocess.mscoco", "data.preprocess.muco",
+                 "data.preprocess.mupots", "data.preprocess.cmu_panoptic",
+                 "data.preprocess.jta"):
         assert f"snipper_tpu_torch.{name}" in res["imported"], name
     leaked = [m for m in res["modules"]
               if m.split(".")[0] in FORBIDDEN + ("matplotlib", "PIL")]
