@@ -28,6 +28,14 @@ result):
    host warp, upload and device warp timed apart; the card's warp held
    against the host warp and the port's CPU warp, and the forward on the
    device-warped input against the forward on the host-warped input.
+   Then the serving profiles and the artifact: ``cli.infer --fast
+   enc4,p2,r480 --device_preprocess`` (counts at 0 just before, read just
+   after: 10 launches per snippet; snippets/s; the profile's forward
+   against the same forward with the plain MSDA), ``probe fast`` with its
+   default specs (exit 0, no FAIL), the f32 canonical_t4 export on the
+   card saved and loaded in a subprocess that imports only torch and the
+   MSDA operators (12 launches per call, the live model's outputs within
+   1e-5), and the ``probe serve`` lines.
 5. Drive the training path: ``snipper_tpu_torch.cli.train`` on
    canonical_t4_f2 (full width and depth), batch 2, bf16 mixed precision,
    a few steps over the synthetic dataset, then its checkpoint and its
@@ -48,7 +56,11 @@ result):
    one profiled step from raw frames), the same with the host warp (step
    time, the loader's host decode and warp), and ``cli.eval`` with the
    PoseTrack harness on the checkpoint (launches per batch, finite stats
-   with the ``posetrack_ap_*`` keys, ms per batch).
+   with the ``posetrack_ap_*`` keys, ms per batch). Then ``cli.train
+   --profile_dir`` for 4 steps (counts at 0 just before, read just after;
+   the trace's summary names both MSDA kernels with device time, and the
+   matching's host span), and ``cli.dump_labels`` on the PoseTrack18-format
+   val split (one pickle entry per sample, the ``--vis 2`` renders).
 6. Hold one f32 train step (dropout 0) with the kernels against the same
    step with the plain MSDA forward and VJP on the card, TF32 off.
 7. Hold the sampling probes' kernels against their plain versions on the
@@ -982,7 +994,8 @@ def breakdown(fn, top=8, reps=5, need=("msda_forward",)):
     return dict(wall_ms=wall_ms, device_ms=total_us / 1e3,
                 busy_share=(total_us / 1e3) / wall_ms if wall_ms else None,
                 msda_ms=msda_us["msda_forward"],
-                msda_backward_ms=msda_us["msda_backward"], top=rows)
+                msda_backward_ms=msda_us["msda_backward"], top=rows,
+                kernel_launches=sum(e.count for e in kernels))
 
 
 def forward_breakdown(model, x):
@@ -1268,6 +1281,329 @@ def phase_serving_device(work, host_res, card):
                 warp_ms=warp_ms, warp_device_ms=warp_device_ms,
                 upload_warp_ms=upload_warp_ms, warp_err=warp_err,
                 forward_diff=fwd_diff)
+
+
+# ------------------------------------------- serving profiles and export
+FAST_SPEC = "enc4,p2,r480"
+TOL_EXPORT = 1e-5
+
+_EXPORT_LOADER = r"""
+import json, sys, statistics
+import torch
+import snipper_tpu_torch.ops.msda as msda
+
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+program = torch.export.load(sys.argv[1]).module()
+x = torch.load(sys.argv[2]).cuda()
+with torch.inference_mode():
+    msda.ms_deform_attn.launches = 0
+    out = program(x)
+    torch.cuda.synchronize()
+    launches = msda.ms_deform_attn.launches
+    times = []
+    for _ in range(10):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        program(x)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+torch.save({k: v.cpu() if torch.is_tensor(v) else [t.cpu() for t in v]
+            for k, v in out.items()}, sys.argv[3])
+print(json.dumps({"launches": launches, "ms": statistics.median(times),
+                  "modules": sorted(m for m in sys.modules
+                                    if m.startswith("snipper_tpu"))}))
+"""
+
+
+def phase_fast_export(work, card, main_res):
+    """Serving profiles and the exported artifact at canonical_t4, on
+    phase_main_path's frames and checkpoint: (a) ``cli.infer --fast
+    enc4,p2,r480 --device_preprocess``, counts at 0 just before and read
+    just after (10 launches per snippet), and the profile's forward against
+    the same forward with the plain MSDA (TOL_FORWARD); (b) ``probe fast``
+    with its default specs; (c) the f32 export on the card, saved and
+    loaded in a subprocess that imports only torch and the MSDA operators:
+    its outputs against the live model (TOL_EXPORT, TF32 off in both) and
+    its launches per call, then the ``probe serve`` lines."""
+    import numpy as np
+    import torch
+
+    from snipper_tpu_torch.cli import infer as infer_cli
+    from snipper_tpu_torch.config import Config
+    from snipper_tpu_torch.infer.export import (export_forward,
+                                                load_exported, save_exported)
+    from snipper_tpu_torch.infer.fast import fast_profiles
+    from snipper_tpu_torch.infer.pipeline import iter_snippet_samples
+    from snipper_tpu_torch.models.snipper import build_model
+    from snipper_tpu_torch.ops.msda import ms_deform_attn
+    from snipper_tpu_torch.train.checkpoint import load_checkpoint
+
+    base = Config.canonical_t4()
+    cfg, transform = fast_profiles(base, FAST_SPEC)
+    frame_dir = os.path.join(work, "frames")
+    ckpt = os.path.join(work, "canonical_t4_seed0.pt")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # ---- (a) serving a profile, counts at 0 ------------------------------
+    ms_deform_attn.launches = 0
+    stats = infer_cli.main([
+        "--preset", "canonical_t4", "--data_dir", frame_dir,
+        "--output_dir", os.path.join(work, "out_fast"), "--seq_gap", "1",
+        "--resume", ckpt, "--fast", FAST_SPEC, "--device_preprocess",
+        "--device", "cuda"])
+    fast_launches = ms_deform_attn.launches
+    # ----------------------------------------------------------------------
+    n = stats["snippets"]
+    per_snippet = fast_launches / n
+    check(n == main_res["snippets"], f"--fast served {n} snippets")
+    check(per_snippet == cfg.enc_layers + cfg.dec_layers,
+          f"msda_forward launched {fast_launches} times for {n} snippets "
+          f"with --fast {FAST_SPEC}, expected "
+          f"{cfg.enc_layers + cfg.dec_layers} per snippet")
+    done = stats["done_at"]
+    steady = (n - 1) / (done[-1] - done[0])
+    fwd_ms = statistics.median(stats["forward_ms"][1:])
+    set_tf32(False)
+    model = build_model(cfg, device="cuda")
+    model.load_state_dict(transform(load_checkpoint(ckpt)["params"]))
+    sample = next(iter_snippet_samples(frame_dir, cfg.num_frames, 1,
+                                       cfg.input_shape))
+    x = torch.from_numpy(sample["imgs"][None]).cuda()
+    with torch.inference_mode():
+        got = model(x)
+    want = forward_with_plain_msda(model, x)
+    for k in ("pred_logits", "pred_kpts2d", "pred_depth"):
+        check(bool(torch.isfinite(got[k]).all()), f"--fast: non-finite {k}")
+    fast_diff = max_output_diff(got, want)
+    check(max(fast_diff.values()) <= TOL_FORWARD,
+          f"--fast {FAST_SPEC} forward, kernel vs plain MSDA: {fast_diff}")
+    log(f"serving --fast {FAST_SPEC} --device_preprocess ({card}): {n} "
+        f"snippets at {cfg.input_height}x{cfg.input_width}, enc "
+        f"{cfg.enc_layers}, {cfg.enc_n_points} points; msda_forward "
+        f"launches {fast_launches} ({per_snippet:g}/snippet); steady-state "
+        f"{steady:.3f} snippets/s (full model with --device_preprocess in "
+        f"this run: see above); upload + warp + forward + readback "
+        f"{fwd_ms:.2f} ms (median, first excluded); the profile's forward,"
+        f" kernel vs plain MSDA (TF32 off): max|diff| "
+        f"{json.dumps(fast_diff)} (tol {TOL_FORWARD:g})")
+    del model, got, want
+
+    # ---- (b) the fast-profile probe --------------------------------------
+    log("probe fast (python -m snipper_tpu_torch.scripts.probe fast):")
+    # PyTorch's defaults, which a user of the probe gets
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rc, out = _run_probe(["fast", "--device", "cuda"])
+    check(rc == 0 and "FAIL" not in out and out.rstrip().endswith("DONE"),
+          f"probe fast exited {rc} or printed FAIL")
+    fast_lines = [ln for ln in out.splitlines() if "snippets/s" in ln]
+    check(len(fast_lines) == 7, f"probe fast printed {fast_lines}")
+    probe_sps = {ln.split(":")[0].strip(): float(ln.split(":")[1].split()[0])
+                 for ln in fast_lines}
+
+    # ---- (c) the artifact, loaded without the model's modules ------------
+    set_tf32(False)
+    model = build_model(base, device="cuda")
+    model.load_state_dict(load_checkpoint(ckpt)["params"])
+    t0 = time.perf_counter()
+    exported = export_forward(base, model.state_dict(), device="cuda")
+    export_s = time.perf_counter() - t0
+    path = os.path.join(work, "canonical_t4.pt2")
+    size = save_exported(exported, path)
+    nodes = sum("snipper_tpu_torch.msda_forward" in str(nd.target)
+                for nd in exported.graph.nodes if nd.op == "call_function")
+    sample = next(iter_snippet_samples(frame_dir, base.num_frames, 1,
+                                       base.input_shape))
+    x = torch.from_numpy(sample["imgs"][None])
+    x_path, out_path = (os.path.join(work, f) for f in ("x.pt", "art.pt"))
+    torch.save(x, x_path)
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [q for q in [env.get("PYTHONPATH")] if q])
+    proc = subprocess.run([sys.executable, "-c", _EXPORT_LOADER, path,
+                           x_path, out_path], capture_output=True,
+                          text=True, timeout=600, env=env, cwd=root)
+    check(proc.returncode == 0,
+          f"loading the artifact failed: {proc.stderr[-2000:]}")
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(not [m for m in loaded["modules"]
+               if m not in ("snipper_tpu_torch", "snipper_tpu_torch.ops",
+                            "snipper_tpu_torch.ops.msda",
+                            "snipper_tpu_torch.ops._build")],
+          f"the loader imported {loaded['modules']}")
+    per_call = base.enc_layers + base.dec_layers
+    check(loaded["launches"] == per_call == nodes,
+          f"the artifact launched msda_forward {loaded['launches']} times "
+          f"per call ({nodes} nodes), expected {per_call}")
+    art = torch.load(out_path)
+    with torch.inference_mode():
+        live = model(x.cuda())
+    export_diff = max_output_diff(art, live)
+    check(max(export_diff.values()) <= TOL_EXPORT,
+          f"artifact vs live model: {export_diff} > {TOL_EXPORT}")
+    check(int(art["sampling_overflow"]) == 0
+          and art["sampling_overflow"].dtype == torch.int32,
+          "artifact sampling_overflow")
+    log(f"export of canonical_t4 f32 on the card ({card}): traced in "
+        f"{export_s:.1f} s, {size / 1e6:.1f} MB, {nodes} msda_forward "
+        f"nodes; loaded in a subprocess importing {loaded['modules']}: "
+        f"{loaded['launches']} launches per call, {loaded['ms']:.2f} ms per"
+        f" call (CUDA events, TF32 off), max|diff| vs the live model "
+        f"{json.dumps(export_diff)} (tol {TOL_EXPORT:g})")
+    # live and artifact in one process, in turns, as a user runs them
+    # (cuDNN TF32 on): wall, device time and kernel launches of a call
+    torch.backends.cudnn.allow_tf32 = True
+    run = load_exported(path)
+    xc = x.cuda()
+
+    def live_fn():
+        with torch.inference_mode():
+            model(xc)
+
+    turns = {"live": [], "artifact": []}
+    for name, fn in (("live", live_fn), ("artifact", lambda: run(xc)),
+                     ("artifact", lambda: run(xc)), ("live", live_fn)):
+        turns[name].append(breakdown(fn, top=1, reps=10))
+
+    def both(bds, key, fmt):
+        return " / ".join(format(b[key], fmt) for b in bds)
+
+    log("live forward vs artifact in turns (live, artifact, artifact, live;"
+        " cuDNN TF32 on): " + "; ".join(
+            f"{name}: wall {both(bds, 'wall_ms', '.2f')} ms, kernels "
+            f"{both(bds, 'device_ms', '.2f')} ms, "
+            f"{both(bds, 'kernel_launches', 'd')} kernel launches, busy "
+            f"{both(bds, 'busy_share', '.3f')}"
+            for name, bds in turns.items()))
+    del model, live, exported, run
+    torch.cuda.empty_cache()
+    log("probe serve (python -m snipper_tpu_torch.scripts.probe serve):")
+    torch.backends.cudnn.allow_tf32 = True
+    rc, out = _run_probe(["serve", "--device", "cuda"])
+    check(rc == 0 and out.rstrip().endswith("DONE"),
+          f"probe serve exited {rc}")
+    serve = {}
+    for ln in out.splitlines():
+        if ln.startswith("live forward"):
+            serve["live_ms"] = float(ln.split(":")[1].split()[0])
+        elif ln.startswith("artifact ("):
+            serve["artifact_ms"] = float(ln.split(":")[1].split()[0])
+            serve["ratio"] = float(ln.split("(")[-1].split("x")[0])
+        elif ln.startswith("artifact:"):
+            serve["mb"] = float(ln.split()[1])
+    check(len(serve) == 4, f"probe serve printed {out}")
+    return dict(fast_launches=fast_launches, fast_per_snippet=per_snippet,
+                fast_steady_snippets_per_s=steady, fast_forward_ms=fwd_ms,
+                fast_diff=fast_diff, probe_fast=probe_sps,
+                export_launches=loaded["launches"], export_bytes=size,
+                export_s=export_s, export_ms=loaded["ms"],
+                export_diff=export_diff, serve=serve, turns=turns)
+
+
+def phase_profile_labels(work, card, real_root, steps=4):
+    """(a) ``cli.train --profile_dir`` on canonical_t4_f2 b2 bf16
+    synthetic, ``steps`` steps with a 2-step window, counts at 0 just
+    before and read just after: the trace exists and its summary names
+    ``msda_forward`` and ``msda_backward`` with device time, and the
+    matching's host span; taken again (up to three runs) when the profiler
+    drops the run's device events. (b) ``cli.dump_labels`` on the
+    PoseTrack18-format val split that phase_train_real wrote: one pickle
+    entry per sample and the ``--vis 2`` renders."""
+    import torch
+
+    from snipper_tpu_torch.cli import dump_labels as dump_cli
+    from snipper_tpu_torch.cli import train as train_cli
+    from snipper_tpu_torch.config import Config
+    from snipper_tpu_torch.data.datasets import HybridDataset
+    from snipper_tpu_torch.ops.msda import ms_deform_attn
+    from snipper_tpu_torch.utils.profiling import host_spans, summarize_trace
+
+    cfg = Config.canonical_t4_f2()
+    per_pass = cfg.enc_layers + cfg.dec_layers
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for attempt in range(3):
+        prof = os.path.join(work, f"profile{attempt}")
+        buf = io.StringIO()
+        # ---- the profiled training run, counts at 0 ----------------------
+        ms_deform_attn.launches = 0
+        ms_deform_attn.backward_launches = 0
+        with contextlib.redirect_stdout(buf):
+            res = train_cli.main([
+                "--preset", "canonical_t4_f2", "--synthetic",
+                "--batch_size", "2", "--synthetic_distinct", "2",
+                "--epochs", "1", "--steps_per_epoch", str(steps),
+                "--eval_every", "5", "--profile_dir", prof,
+                "--profile_steps", "2", "--output_dir",
+                os.path.join(work, f"train_prof{attempt}"),
+                "--device", "cuda"])
+        launches = {"msda_forward": ms_deform_attn.launches,
+                    "msda_backward": ms_deform_attn.backward_launches}
+        # ------------------------------------------------------------------
+        check(launches == {"msda_forward": per_pass * steps,
+                           "msda_backward": per_pass * steps},
+              f"profiled training launches {launches} in {steps} steps")
+        top = summarize_trace(prof, top_k=10_000, n_iters=2)
+        msda = {name: sum(ms for k, ms in top.items() if name in k)
+                for name in ("msda_forward", "msda_backward")}
+        if all(v > 0 for v in msda.values()):
+            break
+    check(all(v > 0 for v in msda.values()),
+          f"the profiled steps' summary has no device time of {msda}")
+    out = buf.getvalue()
+    check("profile trace written to" in out, "no profile summary printed")
+    summary = [ln for ln in out.splitlines() if " ms/step  " in ln]
+    spans = host_spans(prof, n_iters=2)
+    check(spans.get("match_layers", 0) > 0, f"host spans {spans}")
+    trace_mb = sum(os.path.getsize(os.path.join(prof, f))
+                   for f in os.listdir(prof)) / 1e6
+    device_total = sum(summarize_trace(prof, top_k=10_000,
+                                       n_iters=2).values())
+    step_ms = statistics.median(h["seconds"]
+                                for h in res["history"][2:]) * 1e3
+    log(f"training with --profile_dir ({card}): canonical_t4_f2 b2 bf16, "
+        f"{steps} steps, window of 2 from step 2 (run {attempt + 1}); trace"
+        f" {trace_mb:.1f} MB; per step: device {device_total:.2f} ms, "
+        f"msda_forward {msda['msda_forward']:.3f} ms, msda_backward "
+        f"{msda['msda_backward']:.3f} ms, host span match_layers "
+        f"{spans['match_layers']:.2f} ms; profiled steps' host time "
+        f"{step_ms:.2f} ms (median); launches {launches}; the summary "
+        f"printed:")
+    for ln in summary:
+        log(f"  | {ln[:150]}")
+
+    # ---- (b) the label dump on the PoseTrack18-format val split ----------
+    n_val = len(HybridDataset(cfg, "val", posetrack_dir=real_root))
+    dump_dir = os.path.join(work, "labels")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as dbuf:
+        dumped = dump_cli.main([
+            "--preset", "canonical_t4_f2", "--posetrack_dir", real_root,
+            "--mode", "val", "--out", os.path.join(dump_dir, "gt.pkl"),
+            "--vis", "2", "--vis_dir", os.path.join(dump_dir, "vis")])
+    dump_s = time.perf_counter() - t0
+    with open(os.path.join(dump_dir, "gt.pkl"), "rb") as f:
+        gt = pickle.load(f)
+    renders = sorted(os.listdir(os.path.join(dump_dir, "vis")))
+    want = [f"{i:04d}_aug_t{t}.jpg" for i in range(2)
+            for t in range(cfg.num_frames)] + \
+        [f"{i:04d}_aug_trans.jpg" for i in range(2)]
+    check(len(gt) == dumped["samples"] == n_val > 0,
+          f"dump_labels: {len(gt)} entries for {n_val} val samples")
+    check(renders == sorted(want), f"dump_labels renders {renders}")
+    stat_lines = [ln for ln in dbuf.getvalue().splitlines()
+                  if ln.startswith(("persons/sample", "visible-joint",
+                                    "mean normalized"))]
+    log(f"dump_labels on the PoseTrack18-format val split: {len(gt)} "
+        f"entries for {n_val} samples, {len(renders)} renders, "
+        f"{dump_s:.1f} s; {'; '.join(stat_lines)}")
+    return dict(launches=launches, msda_ms=msda, match_layers_ms=spans[
+        "match_layers"], device_ms=device_total, trace_mb=trace_mb,
+        summary=summary, dump_entries=len(gt), renders=len(renders))
 
 
 def phase_train(work, steps=8):
@@ -1656,7 +1992,7 @@ def phase_train_real(work, card, steps=8, host_steps=3):
                 host_step_ms=host_step_ms, host_period_ms=host_period_ms,
                 decode_ms=decode_ms, raw_getter_ms=raw_getter_ms,
                 host_getter_ms=host_getter_ms, eval_batches_real=n,
-                eval_ms=eval_ms, posetrack_ap_keys=ap_keys)
+                eval_ms=eval_ms, posetrack_ap_keys=ap_keys, root=root)
 
 
 def phase_harness(work, n_frames=4):
@@ -1879,6 +2215,8 @@ def main() -> int:
         # 4. the inference path, with the host warp, then the device warp
         main_res = phase_main_path(work)
         serve_res = phase_serving_device(work, main_res, card)
+        # 4a. serving profiles and the exported artifact
+        fast_res = phase_fast_export(work, card, main_res)
         # 5. the training path, then the eval CLI on its checkpoint
         train_res = phase_train(work)
         eval_res = phase_eval(work, train_res["checkpoint"])
@@ -1886,6 +2224,8 @@ def main() -> int:
         real_res = phase_train_real(work, card)
         # 5b. the PoseTrack/COCO harness
         harness_res = phase_harness(work)
+        # 5c. a profiled training run, the label dump
+        prof_res = phase_profile_labels(work, card, real_res["root"])
     # 6. a train step, kernels against the plain MSDA
     agree_res = phase_train_agreement()
     # 8. the probe path
@@ -1912,6 +2252,9 @@ def main() -> int:
         "per_snippet_launches": main_res["per_snippet"],
         "device_preprocess_serving_launches":
             serve_res["launches"]["msda_forward"],
+        "fast_serving_launches": fast_res["fast_launches"],
+        "export_launches": fast_res["export_launches"],
+        "profiled_train_launches": prof_res["launches"]["msda_forward"],
         "train_launches": train_res["launches"]["msda_forward"],
         "per_train_forward_launches": train_res["per_forward"],
         "eval_launches": eval_res["launches"]["msda_forward"],
@@ -1937,6 +2280,7 @@ def main() -> int:
         "at": "train encoder shape, f32: N=8 Lq=9875 H=8 D=48 L=3 P=4",
         "ptxas": ptxas["msda_backward"],
         "per_train_step_launches": train_res["per_step"],
+        "profiled_train_launches": prof_res["launches"]["msda_backward"],
         "real_train_launches": real_res["train_launches"]["msda_backward"],
         "real_eval_launches": real_res["eval_launches"]["msda_backward"],
         "shapes": bwd_res,
@@ -2001,7 +2345,10 @@ def main() -> int:
             kernels[-1]["sm_clock_mhz"] = head["sm_clock_mhz"]
     log(f"card: {card}; inference path "
         f"{main_res['steady_snippets_per_s']:.3f} snippets/s (host warp), "
-        f"{serve_res['steady_snippets_per_s']:.3f} (--device_preprocess); "
+        f"{serve_res['steady_snippets_per_s']:.3f} (--device_preprocess), "
+        f"{fast_res['fast_steady_snippets_per_s']:.3f} (--fast {FAST_SPEC}); "
+        f"artifact {fast_res['serve']['ratio']:.3f}x live, "
+        f"{fast_res['export_bytes'] / 1e6:.1f} MB; "
         f"eval {eval_res['batch_ms']:.2f} ms/batch; harness AP "
         f"{harness_res['posetrack_ap']:g} MOTA "
         f"{harness_res['posetrack_mota']:g}; training "

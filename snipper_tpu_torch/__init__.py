@@ -12,13 +12,15 @@ it (nor JAX):
                                   Snipper model
 - ``snipper_tpu_torch.convert`` -- JAX params / original-repo checkpoints ->
                                   the port's state dict
-- ``snipper_tpu_torch.infer``  -- snippet sampling, decoding, association
+- ``snipper_tpu_torch.infer``  -- snippet sampling, decoding, association,
+                                  serving profiles, the exported artifact
 - ``snipper_tpu_torch.data``, ``.matching``, ``.losses``, ``.train``,
   ``.eval``, ``.utils``        -- the training slice: synthetic data and
                                   loader, Hungarian matching, criterion,
                                   optimizer and steps, metrics, logging
 - ``snipper_tpu_torch.cli``    -- ``python -m snipper_tpu_torch.cli.infer``,
-                                  ``python -m snipper_tpu_torch.cli.train``
+                                  ``.cli.train``, ``.cli.eval``,
+                                  ``.cli.export``, ``.cli.dump_labels``
 
 Entry points run on the GPU unless the CPU is asked for.
 """

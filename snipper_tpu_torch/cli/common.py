@@ -120,3 +120,33 @@ def build_dataset(cfg: Config, args, mode: str,
         jta_dir=args.jta_dir, panoptic_dir=args.panoptic_dir,
         panoptic_protocol=args.panoptic_protocol,
         device_preprocess=device_preprocess)
+
+
+def load_state(parser: argparse.ArgumentParser, args, cfg: Config):
+    """``(cfg, state_dict)`` for the serving and eval CLIs: the checkpoint
+    of ``--pretrained_torch`` or ``--resume`` (a trainer checkpoint's
+    ``params``) read under ``cfg``, then, with ``--fast``, the profile's
+    config and the state dict mapped to it (``infer/fast.py``). Without a
+    checkpoint the state dict is None: the caller seeds a model under the
+    returned config, which is already profile-shaped."""
+    transform = None
+    load_cfg = cfg
+    if getattr(args, "fast", None):
+        from snipper_tpu_torch.infer.fast import fast_profiles
+
+        try:
+            cfg, transform = fast_profiles(cfg, args.fast)
+        except ValueError as e:
+            parser.error(str(e))
+    state = None
+    if args.pretrained_torch:
+        from snipper_tpu_torch.convert import load_reference_checkpoint
+
+        state = load_reference_checkpoint(args.pretrained_torch, load_cfg)
+    elif args.resume:
+        from snipper_tpu_torch.train.checkpoint import load_checkpoint
+
+        state = load_checkpoint(args.resume)["params"]
+    if state is not None and transform is not None:
+        state = transform(state)
+    return cfg, state

@@ -12,7 +12,10 @@ result files and their scores.
 Runs on the GPU unless ``--device cpu`` is given; the forward runs in f32.
 Data is the validation split of the reference-format directories given
 (``--muco_dir`` evaluates MuPoTS), or the synthetic set when none is
-(``--synthetic``). ``--fast`` is not ported yet and is refused.
+(``--synthetic``). ``--fast`` evaluates a serving profile
+(``infer/fast.py``): the checkpoint is read under the preset's config and
+mapped to the profile's, and the data and the eval run under the
+profile's config, so that the stats are the profile's.
 ``--deform_impl`` is accepted and ignored:
 the port's model always samples with the exact ``msda_forward``.
 ``--save_vis`` writes ``{output_dir}/eval_vis/eval_b{batch}_s{i}.jpg``
@@ -29,14 +32,13 @@ import time
 import numpy as np
 
 from snipper_tpu_torch.cli.common import (add_config_args, add_data_args,
-                                          build_config, build_dataset)
+                                          build_config, build_dataset,
+                                          load_state)
 from snipper_tpu_torch.data.loader import DataLoader
+from snipper_tpu_torch.infer.fast import PROFILE_HELP
 from snipper_tpu_torch.losses.criterion import SetCriterion
 from snipper_tpu_torch.models.snipper import build_model, resolve_device
 from snipper_tpu_torch.train.engine import evaluate
-
-# flags of the JAX CLI that this port does not have yet
-NOT_PORTED = ("fast",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -52,11 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--save_vis", action="store_true",
                         help="write GT-vs-prediction keypoint renders for "
                              "the first eval batches")
+    parser.add_argument("--fast", type=str, default=None, help=PROFILE_HELP)
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
-    for name in NOT_PORTED:
-        parser.add_argument(f"--{name}", nargs="?", const=True, default=None,
-                            help="not yet ported (refused)")
     return parser
 
 
@@ -67,12 +67,10 @@ def main(argv=None) -> dict:
     wall time of the eval loop."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    refused = [f"--{n}" for n in NOT_PORTED if getattr(args, n) is not None]
-    if refused:
-        parser.error(f"{', '.join(refused)}: not yet ported to "
-                     f"snipper_tpu_torch")
     device = resolve_device(args.device)
-    cfg = build_config(args)
+    # the checkpoint is read under the preset's config; with --fast the
+    # data and the eval run under the profile's
+    cfg, state = load_state(parser, args, build_config(args))
     os.makedirs(args.output_dir, exist_ok=True)
 
     val_ds = build_dataset(cfg, args, "val")
@@ -80,15 +78,8 @@ def main(argv=None) -> dict:
                         drop_last=False, num_workers=args.num_workers)
 
     model = build_model(cfg, device=device, seed=cfg.seed)
-    if args.pretrained_torch:
-        from snipper_tpu_torch.convert import load_reference_checkpoint
-
-        model.load_state_dict(
-            load_reference_checkpoint(args.pretrained_torch, cfg))
-    elif args.resume:
-        from snipper_tpu_torch.train.checkpoint import load_checkpoint
-
-        model.load_state_dict(load_checkpoint(args.resume)["params"])
+    if state is not None:
+        model.load_state_dict(state)
 
     t0 = time.perf_counter()
     stats = evaluate(

@@ -5,13 +5,15 @@ demo renders of ``infer/visualize.py``.
 
     python -m snipper_tpu_torch.cli.infer --preset canonical_t4 \\
         --data_dir FRAMES --output_dir OUT [--pretrained_torch CKPT.pth] \\
-        [--device_preprocess] [--save_visuals]
+        [--device_preprocess] [--save_visuals] [--fast enc4,p2,r480]
 
 Runs on the GPU unless ``--device cpu`` is given. The forward runs in f32
 under ``torch.inference_mode()``. With ``--device_preprocess`` the host
 only decodes: the uint8 frames are pinned in the prefetch thread, copied
 without blocking and warped where the forward runs
 (``data/device_preprocess.py``). ``--save_visuals`` needs matplotlib.
+``--fast`` serves a profile (``infer/fast.py``): the checkpoint is read
+under the preset's config and mapped to the profile's.
 """
 
 from __future__ import annotations
@@ -24,9 +26,11 @@ import time
 import numpy as np
 import torch
 
-from snipper_tpu_torch.cli.common import add_config_args, build_config
+from snipper_tpu_torch.cli.common import (add_config_args, build_config,
+                                          load_state)
 from snipper_tpu_torch.data.device_preprocess import \
     preprocess_snippet_device
+from snipper_tpu_torch.infer.fast import PROFILE_HELP
 from snipper_tpu_torch.infer.pipeline import (associate_snippets,
                                               iter_snippet_samples,
                                               prefetched, snippet_index)
@@ -34,7 +38,7 @@ from snipper_tpu_torch.infer.postprocess import decode_predictions
 from snipper_tpu_torch.models.snipper import build_model, resolve_device
 
 # flags of the JAX CLI that this port does not have yet
-NOT_PORTED = ("fast", "data_parallel")
+NOT_PORTED = ("data_parallel",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,6 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--snippet_batch", type=int, default=1,
                         help="snippets per forward call")
     parser.add_argument("--preset", type=str, default="canonical_t4")
+    parser.add_argument("--fast", type=str, default=None, help=PROFILE_HELP)
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     for name in NOT_PORTED:
@@ -100,7 +105,14 @@ def main(argv=None) -> dict:
     if args.vis_heatmap_frame_name and not args.save_visuals:
         parser.error("--vis_heatmap_frame_name requires --save_visuals")
     device = resolve_device(args.device)
-    cfg = build_config(args)
+    # the checkpoint is read under the preset's config, then mapped to the
+    # --fast profile's
+    cfg, state = load_state(parser, args, build_config(args))
+    if args.fast:
+        print(f"fast profiles {args.fast}: input "
+              f"{cfg.input_height}x{cfg.input_width}, enc {cfg.enc_layers}, "
+              f"points {cfg.enc_n_points}/{cfg.dec_n_points}, margin "
+              f"{cfg.sampling_margin}", flush=True)
     os.makedirs(args.output_dir, exist_ok=True)
     if args.video:
         from snipper_tpu_torch.infer.pipeline import extract_video_frames
@@ -111,16 +123,8 @@ def main(argv=None) -> dict:
               flush=True)
 
     model = build_model(cfg, device=device, seed=0)
-    if args.pretrained_torch:
-        from snipper_tpu_torch.convert import load_reference_checkpoint
-
-        model.load_state_dict(
-            load_reference_checkpoint(args.pretrained_torch, cfg))
-    elif args.resume:
-        from snipper_tpu_torch.train.checkpoint import load_checkpoint
-
-        # the trainer's checkpoint, as the JAX CLI reads its "params"
-        model.load_state_dict(load_checkpoint(args.resume)["params"])
+    if state is not None:
+        model.load_state_dict(state)
 
     frame_indices, all_files = snippet_index(args.data_dir, cfg.num_frames,
                                              args.seq_gap)

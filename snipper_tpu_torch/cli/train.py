@@ -17,8 +17,9 @@ files ``snipper_tpu_torch.data.preprocess`` writes), or is the synthetic
 set when none is. ``--device_preprocess`` has the loader emit the raw
 uint8 frames with their warp parameters and warps them inside the train
 step on the device; the validation set is always warped on the host.
-``--profile_dir`` and ``--profile_steps`` are not ported yet and are
-refused.
+``--profile_dir DIR`` traces ``--profile_steps`` steps of the first epoch
+with ``torch.profiler`` into DIR (a Chrome trace) and prints the top
+device kernels by self time per step (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -43,15 +44,18 @@ from snipper_tpu_torch.train.engine import evaluate, train_one_epoch
 from snipper_tpu_torch.train.preemption import PreemptionGuard
 from snipper_tpu_torch.train.state import create_train_state
 
-# flags of the JAX CLI that this port does not have yet
-NOT_PORTED = ("profile_dir", "profile_steps")
-
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser("snipper_tpu_torch trainer")
     add_config_args(parser)
     add_data_args(parser)
     parser.add_argument("--eval_every", type=int, default=1)
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="capture a torch.profiler trace of a few "
+                             "steady-state steps of the FIRST epoch into "
+                             "this directory and print the top device "
+                             "kernels")
+    parser.add_argument("--profile_steps", type=int, default=3)
     parser.add_argument("--device_preprocess", action="store_true",
                         help="warp/flip/color the training frames on the "
                              "device inside the train step (the host only "
@@ -64,9 +68,6 @@ def build_parser() -> argparse.ArgumentParser:
                              "full f32")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
-    for name in NOT_PORTED:
-        parser.add_argument(f"--{name}", nargs="?", const=True, default=None,
-                            help="not yet ported (refused)")
     return parser
 
 
@@ -76,10 +77,6 @@ def main(argv=None) -> dict:
     checkpoint's path and the last evaluation's stats."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    refused = [f"--{n}" for n in NOT_PORTED if getattr(args, n) is not None]
-    if refused:
-        parser.error(f"{', '.join(refused)}: not yet ported to "
-                     f"snipper_tpu_torch")
     device = resolve_device(args.device)
     cfg = build_config(args)
     os.makedirs(args.output_dir, exist_ok=True)
@@ -150,7 +147,10 @@ def main(argv=None) -> dict:
                 mixed_precision=args.mixed_precision,
                 stop_flag=lambda: guard.should_stop,
                 max_steps=args.steps_per_epoch,
-                grad_accum_steps=cfg.grad_accum_steps)
+                grad_accum_steps=cfg.grad_accum_steps,
+                profile_dir=(args.profile_dir if epoch == start_epoch
+                             else None),
+                profile_steps=args.profile_steps)
             history += hist
             ckpt_path = save_checkpoint(
                 ckpt_dir, {"params": model.state_dict(),

@@ -4,8 +4,10 @@ the eval's GT-vs-prediction keypoint renders.
 
 The port's own copy of ``snipper_tpu/infer/visualize.py`` (reference
 ``inference_utils.py:342-644``), on PIL + matplotlib, both imported inside
-the functions so that importing the package needs neither. Artifact set
-(the reference demo's):
+the functions so that importing the package needs neither. The id palette
+and the 2D skeletons need no matplotlib (the label renders of
+``cli.dump_labels --vis`` and ``data/preprocess/visualize.py`` run without
+it). Artifact set (the reference demo's):
 
 - ``track2d/{frame}_track.jpg``: skeleton + padded bbox + id label
 - ``track3d/{frame}_track3d.jpg`` and ``..._topdown.jpg``: two 3D views
@@ -28,13 +30,24 @@ import numpy as np
 from snipper_tpu_torch.data.skeleton import SKELETON_EDGES
 
 
+# matplotlib's ``rainbow`` colormap: its 256-entry table of
+# (|2t - 0.5|, sin(pi t), cos(pi t / 2)), clipped to [0, 1]
+_T = np.linspace(0, 1, 256)
+_RAINBOW = np.clip(np.stack([np.abs(2 * _T - 0.5), np.sin(_T * np.pi),
+                             np.cos(_T * np.pi / 2)], -1), 0, 1)
+
+
+def _rainbow(x: float):
+    """The ``rainbow`` colormap at ``x`` in [0, 1] as RGBA, indexed as
+    matplotlib's ``Colormap.__call__`` indexes its table, so the palette
+    needs no matplotlib."""
+    return (*_RAINBOW[min(int(np.float64(x) * 256), 255)], 1.0)
+
+
 def pid_palette(n: int):
     """Rainbow palette shuffled with the reference's fixed seed
     (``inference_utils.py:360-366``)."""
-    import matplotlib.pyplot as plt
-
-    cmap = plt.get_cmap("rainbow")
-    colors = [cmap(x) for x in np.linspace(0, 1, max(n, 1))]
+    colors = [_rainbow(x) for x in np.linspace(0, 1, max(n, 1))]
     random.Random(13).shuffle(colors)
     return colors
 

@@ -106,7 +106,13 @@ def match_layers(
     [B, M, T, K, 2]``, ``valid [B, M]``). Returns one ``src_idx [B, M]``
     (int64, on the predictions' device) per layer: the query matched to
     each padded target slot. The costs of all layers go to the host in one
-    copy."""
+    copy. A ``torch.profiler`` trace shows the whole call, host wait and
+    scipy included, as the host span ``match_layers``."""
+    with torch.profiler.record_function("match_layers"):
+        return _match_layers(layers, targets, max_depth, weights)
+
+
+def _match_layers(layers, targets, max_depth, weights):
     with torch.no_grad():
         valid = targets["valid"].to(torch.float32)[:, None, :]
         cost = torch.stack([

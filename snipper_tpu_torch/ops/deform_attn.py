@@ -35,13 +35,32 @@ import torch
 from snipper_tpu_torch.ops.msda import ms_deform_attn
 
 
+_DEVICE_CONSTANTS = {}
+
+
 def device_constant(values, like: torch.Tensor) -> torch.Tensor:
     """A small f32 host constant on ``like``'s device. On a CUDA device it
-    is copied from pinned memory without blocking: a copy from pageable
-    memory would wait for the stream to drain."""
-    t = torch.as_tensor(np.asarray(values, np.float32))
-    if like.device.type == "cuda":
-        t = t.pin_memory().to(like.device, non_blocking=True)
+    is copied once, from pinned memory without blocking (a copy from
+    pageable memory would wait for the stream to drain), and kept: later
+    calls with the same values reuse it, and ``torch.export`` takes the
+    kept tensor into the program as a constant on the device, so that the
+    program copies nothing when it runs. The kept tensor is made outside
+    inference mode, so that autograd may save it later. The values are a
+    model's level sizes and frame counts, so the store holds a few
+    tensors per input resolution."""
+    values = np.asarray(values, np.float32)
+    if like.device.type != "cuda":
+        return torch.as_tensor(values)
+    key = (values.tobytes(), values.shape, like.device)
+    t = _DEVICE_CONSTANTS.get(key)
+    if t is None:
+        if torch.compiler.is_compiling():
+            # not seen eagerly first: a constant copied at each run
+            return torch.as_tensor(values, device=like.device)
+        with torch.inference_mode(False):
+            t = torch.as_tensor(values).pin_memory().to(like.device,
+                                                        non_blocking=True)
+        _DEVICE_CONSTANTS[key] = t
     return t
 
 

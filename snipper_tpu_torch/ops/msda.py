@@ -4,11 +4,20 @@ version, the wrappers of the two Hopper kernels and their autograd pairing.
 ``ms_deform_attn`` is what the model calls. It chooses by the device of its
 inputs alone: tensors on the CPU take the plain version,
 :func:`ms_deform_attn_torch`, which autograd differentiates through
-``F.grid_sample``; tensors on a CUDA device go through
-:class:`MSDAFunction`, whose forward launches ``msda_forward``
-(``ops/csrc/msda_forward.cu``) and whose backward launches
-``msda_backward`` (``ops/csrc/msda_backward.cu``), or the wrappers raise.
-There is no fallback from the card to the plain version.
+``F.grid_sample``; tensors on a CUDA device go through the registered
+operator ``torch.ops.snipper_tpu_torch.msda_forward``, which launches the
+``msda_forward`` kernel (``ops/csrc/msda_forward.cu``) and whose autograd
+formula calls ``torch.ops.snipper_tpu_torch.msda_backward``, which launches
+``msda_backward`` (``ops/csrc/msda_backward.cu``), or they raise. There is
+no fallback from the card to the plain version.
+
+The two operators (``torch.library.custom_op``, level shapes as a flat
+``int[]``, CUDA kernels only) have fake implementations, so that
+``torch.export`` traces the model into a graph with one
+``msda_forward`` node per sampling call; the exported program launches the
+same kernels. The plain version stays outside the operators: an
+operator's body runs below autograd, where ``ms_deform_attn_torch_vjp``
+could not differentiate.
 
 Both compute the JAX package's ``ms_deform_attn_core``
 (``snipper_tpu/ops/deform_attn.py:47``) and ``ms_deform_attn_pallas``
@@ -23,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -146,12 +155,33 @@ def _level_table(spatial_shapes):
             (ctypes.c_int64 * L)(*starts))
 
 
+def flat_shapes(spatial_shapes: Sequence[Tuple[int, int]]) -> List[int]:
+    """``[(h, w), ...]`` as the operators' flat ``[h0, w0, h1, w1, ...]``."""
+    return [int(v) for hw in spatial_shapes for v in hw]
+
+
+def _pairs(shapes: List[int]) -> List[Tuple[int, int]]:
+    return [(shapes[i], shapes[i + 1]) for i in range(0, len(shapes), 2)]
+
+
 def msda_forward(value: torch.Tensor,
                  spatial_shapes: Sequence[Tuple[int, int]],
                  loc: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
-    """Launch the forward kernel on the current stream; same contract as
-    :func:`ms_deform_attn_torch`. Raises on anything the kernel does not
-    take."""
+    """Launch the forward kernel on the current stream through the
+    registered operator; same contract as :func:`ms_deform_attn_torch`.
+    Raises on anything the kernel does not take."""
+    _check_inputs("msda_forward", value, spatial_shapes, loc, attn)
+    return torch.ops.snipper_tpu_torch.msda_forward(
+        value, flat_shapes(spatial_shapes), loc, attn)
+
+
+@torch.library.custom_op("snipper_tpu_torch::msda_forward", mutates_args=(),
+                         device_types="cuda")
+def _msda_forward_op(value: torch.Tensor, shapes: List[int],
+                     loc: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+    """The operator's CUDA body: one launch, counted in
+    ``ms_deform_attn.launches``."""
+    spatial_shapes = _pairs(shapes)
     N, S, H, D, Lq, L, P = _check_inputs("msda_forward", value,
                                          spatial_shapes, loc, attn)
     kind = "f32" if value.dtype == torch.float32 else "bf16"
@@ -170,17 +200,30 @@ def msda_forward(value: torch.Tensor,
     return out
 
 
+@_msda_forward_op.register_fake
+def _(value, shapes, loc, attn):
+    N, _, H, D = value.shape
+    return value.new_empty(N, loc.shape[1], H * D)
+
+
 def msda_backward(value: torch.Tensor,
                   spatial_shapes: Sequence[Tuple[int, int]],
                   loc: torch.Tensor, attn: torch.Tensor,
                   grad_out: torch.Tensor):
-    """Launch the backward kernel on the current stream; same contract as
-    :func:`ms_deform_attn_torch_vjp`: ``(d_value, d_loc, d_attn)``, all
-    three f32 whatever the value's dtype (autograd casts ``d_value`` to a
-    bf16 value's dtype). ``grad_out [N, Lq, H*D]`` must have the value's
-    dtype. Raises on anything the kernel does not take."""
-    N, S, H, D, Lq, L, P = _check_inputs("msda_backward", value,
-                                         spatial_shapes, loc, attn)
+    """Launch the backward kernel on the current stream through the
+    registered operator; same contract as :func:`ms_deform_attn_torch_vjp`:
+    ``(d_value, d_loc, d_attn)``, all three f32 whatever the value's dtype
+    (the autograd formula casts ``d_value`` to a bf16 value's dtype).
+    ``grad_out [N, Lq, H*D]`` must have the value's dtype. Raises on
+    anything the kernel does not take."""
+    _check_backward_inputs(value, spatial_shapes, loc, attn, grad_out)
+    return torch.ops.snipper_tpu_torch.msda_backward(
+        value, flat_shapes(spatial_shapes), loc, attn, grad_out)
+
+
+def _check_backward_inputs(value, spatial_shapes, loc, attn, grad_out):
+    dims = _check_inputs("msda_backward", value, spatial_shapes, loc, attn)
+    N, S, H, D, Lq, L, P = dims
     if D > MAX_BACKWARD_D:
         raise ValueError(f"msda_backward takes D <= {MAX_BACKWARD_D} "
                          f"channels per head (got {D})")
@@ -192,6 +235,20 @@ def msda_backward(value: torch.Tensor,
                          f"[{N}, {Lq}, {H * D}] on {value.device} (got "
                          f"{grad_out.dtype} {tuple(grad_out.shape)} on "
                          f"{grad_out.device})")
+    return dims
+
+
+@torch.library.custom_op("snipper_tpu_torch::msda_backward",
+                         mutates_args=(), device_types="cuda")
+def _msda_backward_op(value: torch.Tensor, shapes: List[int],
+                      loc: torch.Tensor, attn: torch.Tensor,
+                      grad_out: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The operator's CUDA body: one launch, counted in
+    ``ms_deform_attn.backward_launches``."""
+    spatial_shapes = _pairs(shapes)
+    N, S, H, D, Lq, L, P = _check_backward_inputs(value, spatial_shapes,
+                                                  loc, attn, grad_out)
     kind = "f32" if value.dtype == torch.float32 else "bf16"
     fn = getattr(_kernel_lib("msda_backward"), f"msda_backward_{kind}")
     dev = value.device
@@ -213,38 +270,44 @@ def msda_backward(value: torch.Tensor,
     return d_value, d_loc, d_attn
 
 
-class MSDAFunction(torch.autograd.Function):
-    """The two kernels as one differentiable op: forward ``msda_forward``,
-    backward ``msda_backward``, saving value, loc and attn. The f32
-    ``d_value`` of a bf16 value is cast to bf16 by autograd's engine,
-    which gives each gradient its input's dtype."""
+@_msda_backward_op.register_fake
+def _(value, shapes, loc, attn, grad_out):
+    f32 = torch.float32
+    return (value.new_empty(value.shape, dtype=f32),
+            loc.new_empty(loc.shape, dtype=f32),
+            attn.new_empty(attn.shape, dtype=f32))
 
-    @staticmethod
-    def forward(ctx, value, loc, attn, spatial_shapes):
-        ctx.spatial_shapes = tuple((int(h), int(w))
-                                   for h, w in spatial_shapes)
-        ctx.save_for_backward(value, loc, attn)
-        return msda_forward(value, ctx.spatial_shapes, loc, attn)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        value, loc, attn = ctx.saved_tensors
-        d_value, d_loc, d_attn = msda_backward(
-            value, ctx.spatial_shapes, loc, attn,
-            grad_out.to(value.dtype).contiguous())
-        return d_value, d_loc, d_attn, None
+def _setup_context(ctx, inputs, output):
+    value, shapes, loc, attn = inputs
+    ctx.shapes = shapes
+    ctx.save_for_backward(value, loc, attn)
+
+
+def _backward(ctx, grad_out):
+    """The two kernels as one differentiable op: the backward kernel on
+    the saved value, loc and attn; the f32 ``d_value`` of a bf16 value is
+    cast to bf16, each gradient in its input's dtype."""
+    value, loc, attn = ctx.saved_tensors
+    d_value, d_loc, d_attn = torch.ops.snipper_tpu_torch.msda_backward(
+        value, ctx.shapes, loc, attn, grad_out.to(value.dtype).contiguous())
+    return d_value.to(value.dtype), None, d_loc, d_attn
+
+
+_msda_forward_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def ms_deform_attn(value: torch.Tensor,
                    spatial_shapes: Sequence[Tuple[int, int]],
                    loc: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
     """MSDA, by device: the plain version for CPU tensors, the two kernels
-    through :class:`MSDAFunction` for CUDA tensors.
+    through the registered operator for CUDA tensors.
     ``ms_deform_attn.launches`` counts the forward kernel's launches,
     ``ms_deform_attn.backward_launches`` the backward kernel's."""
     if value.device.type == "cpu":
         return ms_deform_attn_torch(value, spatial_shapes, loc, attn)
-    return MSDAFunction.apply(value, loc, attn, spatial_shapes)
+    return torch.ops.snipper_tpu_torch.msda_forward(
+        value, flat_shapes(spatial_shapes), loc, attn)
 
 
 ms_deform_attn.launches = 0

@@ -1,10 +1,14 @@
-"""Sampling-op probes on the card: the port of ``scripts/probe.py``'s
-``op`` and ``lanegather`` subcommands, which time the sampling formulations
-and the TPU kernels' questions at the JAX probe's own sizes.
+"""Probes on the card: the port of ``scripts/probe.py``'s ``op`` and
+``lanegather`` subcommands, which time the sampling formulations and the
+TPU kernels' questions at the JAX probe's own sizes, and of its ``serve``
+and ``fast`` subcommands, which time the serving artifact against the live
+forward and the ``--fast`` profiles.
 
     python -m snipper_tpu_torch.scripts.probe op \\
         --impls windowed,windowed2d,windowed2d_pallas,pmerged,pallas,core
     python -m snipper_tpu_torch.scripts.probe lanegather
+    python -m snipper_tpu_torch.scripts.probe serve [--preset canonical_t4]
+    python -m snipper_tpu_torch.scripts.probe fast [--specs "base|enc4,p2"]
 
 Each prints the JAX probe's lines with the card's times, then ``DONE``.
 ``op`` samples at encoder scale (canonical 600x800 level shapes, 4 folded
@@ -26,8 +30,18 @@ between two CUDA events where the JAX probe reads back a scalar (on the
 CPU, the host clock). Like the JAX probe, an impl that raises prints a
 ``FAIL`` line and the sweep goes on; the probe then exits non-zero after
 ``DONE``. ``--device`` is ``cuda`` unless the CPU is asked for, and the
-probe raises without a card. The JAX probe's other subcommands (forward,
-train, split, serve, fast, meshscale) are not yet ported and are refused.
+probe raises without a card.
+
+``serve`` exports the preset's forward (``infer/export.py``), loads the
+artifact back and times it against the live model, in ms per snippet and
+as a ratio, with the artifact's size and the weights' dtype. ``fast``
+seeds one model, maps its one state dict to each profile of ``--specs``
+(``infer/fast.py``) and prints each profile's snippets/s beside the
+base's; a spec that raises prints ``FAIL`` and the probe exits non-zero
+after ``DONE``. Both run the forward in f32, as ``cli.infer`` does.
+
+The JAX probe's other subcommands (forward, train, split, meshscale) are
+not yet ported and are refused.
 """
 
 from __future__ import annotations
@@ -41,7 +55,7 @@ import traceback
 import numpy as np
 import torch
 
-NOT_PORTED = ("forward", "train", "split", "serve", "fast", "meshscale")
+NOT_PORTED = ("forward", "train", "split", "meshscale")
 
 
 # ---------------------------------------------------------------- timing
@@ -194,6 +208,129 @@ def cmd_lanegather(args) -> int:
     return lanegather_probe.run(K=args.K, device=resolve_device(args.device))
 
 
+def _seeded_state(cfg, device, param_dtype="float32"):
+    """A model of ``cfg`` seeded with 0 on ``device``, its sampling
+    projections' weights drawn at random so that queries sample different
+    places; with bfloat16 every f32 weight is rounded to bf16 (and kept
+    f32, as the bf16 artifact computes)."""
+    from snipper_tpu_torch.models.snipper import build_model
+
+    model = build_model(cfg, device=device, seed=0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("sampling_offsets.weight",
+                              "attention_weights.weight")):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+            if param_dtype == "bfloat16":
+                p.copy_(p.to(torch.bfloat16).float())
+    return model
+
+
+def _impl(device) -> str:
+    """The MSDA the model runs on ``device``."""
+    return "msda_forward" if device.type == "cuda" else "ms_deform_attn_torch"
+
+
+def cmd_serve(args) -> int:
+    """The exported artifact against the live forward: the artifact's size,
+    then ms per snippet of each, timed in turns (live, artifact, artifact,
+    live, twice; the median of each), and their ratio; returns 0."""
+    import os
+    import statistics
+    import tempfile
+
+    from snipper_tpu_torch.config import Config
+    from snipper_tpu_torch.infer.export import (export_forward,
+                                                load_exported, save_exported)
+    from snipper_tpu_torch.models.snipper import resolve_device
+
+    device = resolve_device(args.device)
+    cfg = getattr(Config, args.preset)()
+    dt = args.param_dtype
+    print(f"serving artifact probe on {device}: {args.preset}, {dt} "
+          f"weights, f32 forward, batch 1", flush=True)
+    model = _seeded_state(cfg, device, dt)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(
+        0, 1, (1, cfg.num_frames, cfg.input_height, cfg.input_width, 3)
+    ).astype(np.float32)).to(device)
+    with tempfile.TemporaryDirectory() as d:
+        exported = export_forward(cfg, model.state_dict(), device=device.type,
+                                  param_dtype=dt)
+        path = os.path.join(d, "model.pt2")
+        size = save_exported(exported, path)
+        ops = [str(n.target) for n in exported.graph.nodes
+               if n.op == "call_function"]
+        print(f"artifact: {size / 1e6:.1f} MB ({dt} weights), {len(ops)} "
+              f"ops, {sum('msda_forward' in t for t in ops)} msda_forward",
+              flush=True)
+        run = load_exported(path)
+
+    def live(xx):
+        with torch.inference_mode():
+            return model(xx)["pred_logits"]
+
+    times = {live: [], run: []}
+    for _ in range(2):
+        for fn in (live, run, run, live):
+            times[fn].append(time_fn(lambda xx: fn(xx)["pred_logits"]
+                                     if fn is run else fn(xx), x, K=args.K,
+                                     repeats=1))
+    ms_live, ms_art = (statistics.median(times[f]) for f in (live, run))
+    print(f"live forward ({_impl(device)}, {dt}): {ms_live:7.2f} "
+          f"ms/snippet", flush=True)
+    print(f"artifact (load_exported, {dt}): {ms_art:7.2f} ms/snippet "
+          f"({ms_art / ms_live:.3f}x live)", flush=True)
+    return 0
+
+
+def cmd_fast(args) -> int:
+    """Serving-profile throughput: one seeded state dict mapped to each
+    profile of ``--specs`` and timed through the model; returns the number
+    of specs that failed."""
+    from snipper_tpu_torch.config import Config
+    from snipper_tpu_torch.infer.fast import fast_profiles
+    from snipper_tpu_torch.models.snipper import build_model, resolve_device
+
+    device = resolve_device(args.device)
+    base = getattr(Config, args.preset)()
+    print(f"fast-profile probe on {device}: {args.preset}, f32 forward, "
+          f"batch {args.batch}", flush=True)
+    full = _seeded_state(base, device).state_dict()
+    rng = np.random.default_rng(0)
+    base_sps, failed = None, 0
+    for spec in args.specs.split("|"):
+        spec = spec.strip()
+        try:
+            if spec in ("", "base"):
+                cfg, state, label = base, full, "base"
+            else:
+                cfg, transform = fast_profiles(base, spec)
+                state, label = transform(full), spec
+            model = build_model(cfg, device=device, seed=0)
+            model.load_state_dict(state)
+            x = torch.from_numpy(rng.uniform(
+                0, 1, (args.batch, cfg.num_frames, cfg.input_height,
+                       cfg.input_width, 3)).astype(np.float32)).to(device)
+            with torch.inference_mode():
+                ms = time_fn(lambda xx: model(xx)["pred_logits"], x,
+                             K=args.K)
+            del model
+            sps = 1e3 / (ms / args.batch)
+            if label == "base":
+                base_sps = sps
+            rel = f"  {sps / base_sps:.2f}x base" if base_sps else ""
+            print(f"{label:16s}: {sps:6.2f} snippets/s  [{_impl(device)} f32 "
+                  f"{cfg.input_height}x{cfg.input_width} enc{cfg.enc_layers} "
+                  f"P={cfg.enc_n_points}/{cfg.dec_n_points}]{rel}",
+                  flush=True)
+        except Exception as e:  # noqa: BLE001 - reported, counted
+            failed += 1
+            _fail(spec, e)
+    return failed
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         description=__doc__,
@@ -214,13 +351,31 @@ def main(argv=None) -> int:
     lg.add_argument("--device", default="cuda")
     lg.set_defaults(fn=cmd_lanegather)
 
+    sv = sub.add_parser("serve")
+    sv.add_argument("--preset", default="canonical_t4")
+    sv.add_argument("--param_dtype", default="float32",
+                    choices=("float32", "bfloat16"))
+    sv.add_argument("-K", type=int, default=10)
+    sv.add_argument("--device", default="cuda")
+    sv.set_defaults(fn=cmd_serve, inference=False)
+
+    fa = sub.add_parser("fast")
+    fa.add_argument("--preset", default="canonical_t4")
+    fa.add_argument("--specs", default="base|m3|r480|enc4|p2|enc4,p2|"
+                    "enc4,p2,r480")
+    fa.add_argument("--batch", type=int, default=1)
+    fa.add_argument("-K", type=int, default=12)
+    fa.add_argument("--device", default="cuda")
+    fa.set_defaults(fn=cmd_fast, inference=False)
+
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] in NOT_PORTED:
         p.error(f"subcommand {argv[0]!r} is not yet ported to "
-                f"snipper_tpu_torch (ROADMAP A9); the JAX probe "
+                f"snipper_tpu_torch (ROADMAP A4, A8); the JAX probe "
                 f"scripts/probe.py runs it")
     args = p.parse_args(argv)
-    with torch.inference_mode():
+    # serve and fast build models (and an export) outside inference mode
+    with torch.inference_mode(getattr(args, "inference", True)):
         failed = args.fn(args)
     print("DONE", flush=True)
     return 1 if failed else 0

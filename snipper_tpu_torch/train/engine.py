@@ -12,6 +12,7 @@ request it collects the results and renders the first batches.
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import time
 from typing import Callable, Dict, List, Optional
@@ -72,7 +73,9 @@ def train_one_epoch(state, criterion, loader, epoch: int,
                     mixed_precision: bool = True, print_freq: int = 10,
                     stop_flag: Optional[Callable[[], bool]] = None,
                     max_steps: Optional[int] = None,
-                    grad_accum_steps: int = 1):
+                    grad_accum_steps: int = 1,
+                    profile_dir: Optional[str] = None,
+                    profile_steps: int = 3):
     """``max_steps``: stop the epoch after N steps. Batches reach the card
     through ``device_prefetch`` (JAX ``train/engine.py:117-126``): the next
     batch's copy is issued, on a side stream on a card, before the current
@@ -80,9 +83,41 @@ def train_one_epoch(state, criterion, loader, epoch: int,
     metric and, per step, its metrics, its host time in seconds (the step
     ends with the metrics read, so the card has finished it) and
     ``data_seconds``, the host time spent waiting for its batch (the
-    loader, and issuing the next batch's copy)."""
+    loader, and issuing the next batch's copy).
+
+    ``profile_dir``: trace ``profile_steps`` steps with ``torch.profiler``
+    (from step 2, after the first step and one warm step; JAX
+    ``train/engine.py:74-148``) into that directory and print the top
+    device kernels by self time per step."""
     logger = MetricLogger()
     history: List[Dict[str, float]] = []
+    profiler = contextlib.ExitStack()
+    profiling = False
+    profiled = 0        # steps completed inside the trace window
+    profile_start = 2   # skip the first step and one warm step
+    if profile_dir is not None:
+        n_total = max_steps
+        if n_total is None:
+            try:
+                n_total = len(loader)
+            except TypeError:
+                n_total = None
+        if n_total is not None and n_total < profile_start + profile_steps:
+            # short epoch: still produce a trace rather than silently none
+            profile_start = max(n_total - profile_steps, 0)
+            print(f"profile window clamped to start at step {profile_start} "
+                  "(short epoch — the trace may include compile/warm steps)",
+                  flush=True)
+
+    def finish_profile():
+        nonlocal profiling
+        if profiling:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            profiler.close()
+            profiling = False
+            _print_trace_summary(profile_dir, profiled)
+
     iterable = iter(loader)
     if grad_accum_steps > 1:
         iterable = inject_window_num_traj(iterable, grad_accum_steps)
@@ -98,6 +133,11 @@ def train_one_epoch(state, criterion, loader, epoch: int,
             print("preemption signal received — stopping epoch early",
                   flush=True)
             break
+        if profile_dir is not None and i == profile_start and not profiling:
+            from snipper_tpu_torch.utils.profiling import trace
+
+            profiler.enter_context(trace(profile_dir))
+            profiling = True
         t0 = time.perf_counter()
         metrics = _read_scalars(train_step(
             state, criterion, batch, generator,
@@ -105,15 +145,32 @@ def train_one_epoch(state, criterion, loader, epoch: int,
         t_data, data_s = time.perf_counter(), t0 - t_data
         history.append(dict(metrics, seconds=t_data - t0,
                             data_seconds=data_s))
+        if profiling:
+            profiled += 1   # the read of the scalars ended this step
+            if profiled >= profile_steps:
+                finish_profile()
         loss = metrics["loss_total"]
         if not np.isfinite(loss):
+            finish_profile()  # keep the trace of the steps that blew up
             print(f"Loss is {loss}, stopping training", flush=True)
             print(metrics, flush=True)
             sys.exit(1)
         logger.update(**metrics)
         logger.update(lr=state.lr_fns[-1](state.updates))
+    finish_profile()  # the epoch ended before the window filled
     print("Averaged stats:", logger, flush=True)
     return {k: m.global_avg for k, m in logger.meters.items()}, history
+
+
+def _print_trace_summary(profile_dir: str, n_iters: int):
+    from snipper_tpu_torch.utils.profiling import host_spans, summarize_trace
+
+    top = summarize_trace(profile_dir, top_k=10, n_iters=max(n_iters, 1))
+    print(f"profile trace written to {profile_dir}", flush=True)
+    for name, ms in top.items():
+        print(f"  {ms:8.2f} ms/step  {name}", flush=True)
+    for name, ms in host_spans(profile_dir, max(n_iters, 1)).items():
+        print(f"  {ms:8.2f} ms/step  host span {name}", flush=True)
 
 
 def evaluate(model, criterion, loader, cfg: Config, device: torch.device,

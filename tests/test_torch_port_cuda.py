@@ -1,9 +1,11 @@
 """The CUDA kernels ``msda_forward``, ``msda_backward``, ``win2d_sample``,
 ``win2d_contract``, ``hier_gather``, ``chain_gather`` and ``chain_select``
-against their plain PyTorch versions, and the device warps, ``cli.infer
---device_preprocess``, ``cli.eval``, a train step from raw frames and the
-side-stream prefetch on the card against the CPU, on a CUDA card. Without
-one, every test here skips (the kernels have no CPU mode).
+against their plain PyTorch versions, the two MSDA kernels through their
+registered operators, an exported artifact on the card against the live
+model, and the device warps, ``cli.infer --device_preprocess``,
+``cli.eval``, a train step from raw frames and the side-stream prefetch on
+the card against the CPU, on a CUDA card. Without one, every test here
+skips (the kernels have no CPU mode).
 
 This file imports nothing of JAX, so it also runs on a GPU host without
 JAX (tests/conftest.py imports JAX, hence ``--noconftest``):
@@ -20,7 +22,8 @@ from snipper_tpu_torch.models.snipper import build_model
 from snipper_tpu_torch.ops import lane_chain, win2d
 from snipper_tpu_torch.ops.deform_attn import (ms_deform_attn_windowed2d,
                                                windowed2d_plan)
-from snipper_tpu_torch.ops.msda import (ms_deform_attn, ms_deform_attn_torch,
+from snipper_tpu_torch.ops.msda import (flat_shapes, ms_deform_attn,
+                                        ms_deform_attn_torch,
                                         ms_deform_attn_torch_vjp,
                                         msda_backward, msda_forward)
 from snipper_tpu_torch.scripts.lanegather_probe import _fixture
@@ -161,6 +164,82 @@ def test_cuda_output_carries_grad_fn(cuda, value_dtype):
         assert t.grad is not None and t.grad.dtype == t.dtype
         assert torch.isfinite(t.grad).all()
         assert t.grad.abs().sum().item() > 0
+
+
+@pytest.mark.parametrize("value_dtype", [torch.float32, torch.bfloat16])
+def test_registered_ops_match_plain(cuda, value_dtype):
+    """Forward and backward through ``torch.ops.snipper_tpu_torch``'s
+    ``msda_forward`` (its autograd formula calls ``msda_backward``) against
+    the plain forward and VJP; the tolerances of
+    test_kernel_matches_plain_f32 / _bf16_value and
+    test_backward_kernel_matches_plain_vjp. Each op launches its kernel
+    once."""
+    value, shapes, loc, attn = _inputs(cuda, 10, value_dtype=value_dtype)
+    grad_out = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (value.shape[0], loc.shape[1], value.shape[2] * value.shape[3])
+    ).astype(np.float32)).to(cuda, value_dtype)
+    inputs = [t.detach().clone().requires_grad_(True)
+              for t in (value, loc, attn)]
+    before = (ms_deform_attn.launches, ms_deform_attn.backward_launches)
+    out = torch.ops.snipper_tpu_torch.msda_forward(
+        inputs[0], flat_shapes(shapes), inputs[1], inputs[2])
+    got = torch.autograd.grad(out, inputs, grad_out)
+    assert (ms_deform_attn.launches,
+            ms_deform_attn.backward_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    want_out = ms_deform_attn_torch(value, shapes, loc, attn)
+    want = ms_deform_attn_torch_vjp(value, shapes, loc, attn, grad_out)
+    torch.cuda.synchronize()
+    bf16 = value_dtype == torch.bfloat16
+    scale = max(1.0, want_out.float().abs().max().item())
+    tol = 1e-2 * scale if bf16 else 1e-5
+    assert out.dtype == value_dtype
+    assert (out.float() - want_out.float()).abs().max().item() <= tol
+    for i, (g, w, t) in enumerate(zip(got, want, inputs)):
+        assert g.dtype == t.dtype, i
+        rel = 1e-2 if (i == 0 and bf16) else 1e-5
+        tol = rel * max(1.0, w.float().abs().max().item())
+        assert (g.float() - w.float()).abs().max().item() <= tol, i
+
+
+def test_exported_artifact_on_card_matches_live_model(cuda, tmp_path):
+    """The tiny model exported on the card (``infer/export.py``), saved and
+    loaded back: one ``msda_forward`` node per sampling call in its graph,
+    that many launches per call, and the live model's outputs within 1e-5
+    (the same kernels on the same inputs)."""
+    from snipper_tpu_torch.infer.export import (export_forward,
+                                                load_exported, save_exported)
+
+    cfg = Config.tiny()
+    model = build_model(cfg, device=cuda, seed=3)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("sampling_offsets.weight",
+                              "attention_weights.weight")):
+                p.normal_(0, 0.05, generator=torch.Generator(
+                    device=cuda).manual_seed(4))
+    ep = export_forward(cfg, model.state_dict(), device="cuda")
+    nodes = [n for n in ep.graph.nodes if n.op == "call_function"
+             and "snipper_tpu_torch.msda_forward" in str(n.target)]
+    per_call = cfg.enc_layers + cfg.dec_layers
+    assert len(nodes) == per_call
+    path = str(tmp_path / "tiny.pt2")
+    assert save_exported(ep, path) > 0
+    run = load_exported(path)
+    x = torch.from_numpy(np.random.default_rng(5).uniform(
+        0, 1, (1, cfg.num_frames, cfg.input_height, cfg.input_width, 3)
+    ).astype(np.float32)).to(cuda)
+    before = ms_deform_attn.launches
+    got = run(x)
+    assert ms_deform_attn.launches - before == per_call
+    with torch.inference_mode():
+        want = model(x)
+    assert int(got["sampling_overflow"]) == 0
+    for k in ("pred_logits", "pred_kpts2d", "pred_depth"):
+        assert got[k].device.type == "cuda"
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=1e-5)
+    for a, b in zip(got["heatmaps"], want["heatmaps"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
 
 
 def _msda_case(case, device, value_dtype):

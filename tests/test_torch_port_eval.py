@@ -132,15 +132,6 @@ def test_eval_writes_jax_files(eval_runs):
     assert "eval_vis/eval_b0000_s0.jpg" in files
 
 
-@pytest.mark.parametrize("flag", eval_cli.NOT_PORTED)
-def test_eval_refuses_flags_not_ported(flag, tmp_path, capsys):
-    with pytest.raises(SystemExit) as e:
-        eval_cli.main(["--preset", "tiny", "--synthetic", "--device", "cpu",
-                       f"--{flag}", "x", "--output_dir", str(tmp_path)])
-    assert e.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
-
-
 def test_eval_defaults_to_cuda_and_raises_without_it(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("checks the error raised where CUDA is absent")

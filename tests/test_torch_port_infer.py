@@ -159,7 +159,7 @@ def test_cli_without_cuda_raises(tmp_path):
                        "--output_dir", str(tmp_path / "out")])
 
 
-@pytest.mark.parametrize("flag", ["--fast=p2", "--data_parallel"])
+@pytest.mark.parametrize("flag", ["--data_parallel"])
 def test_cli_refuses_flags_not_ported(tmp_path, capsys, flag):
     with pytest.raises(SystemExit):
         port_cli.main(["--preset", "tiny", "--data_dir", str(tmp_path),

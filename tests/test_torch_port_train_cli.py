@@ -104,15 +104,6 @@ def test_infer_resume_loads_the_trainer_checkpoint(trained, tmp_path,
     assert all(torch.equal(got[k], want[k]) for k in want)
 
 
-@pytest.mark.parametrize("flag", train_cli.NOT_PORTED)
-def test_refused_flags(flag, tmp_path, capsys):
-    with pytest.raises(SystemExit) as e:
-        train_cli.main(ARGS + [f"--{flag}", "x", "--output_dir",
-                               str(tmp_path)])
-    assert e.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
-
-
 def test_deform_impl_is_accepted_and_ignored(tmp_path):
     """TPU-only knobs parse as in the JAX CLI; the port samples with its
     one exact gather whatever they say."""
