@@ -61,6 +61,18 @@ result):
    the trace's summary names both MSDA kernels with device time, and the
    matching's host span), and ``cli.dump_labels`` on the PoseTrack18-format
    val split (one pickle entry per sample, the ``--vis 2`` renders).
+   Then the multi-GPU paths on this one card (right, not scaling): an f32
+   canonical_t4_f2 step (dropout 0, TF32 off) on two gloo ranks of
+   cuda:0, data-parallel (batch 1 a rank) and tensor-parallel (4 heads a
+   rank), each against one process's batch-2 step on the same weights
+   (loss, every gradient, the matching; 12 launches of each MSDA kernel
+   per rank and step, counts at 0 just before and read just after), with
+   each rank's step time and the gradient all-reduce's time;
+   ``cli.train`` (3 bf16 steps and a checkpoint) and ``cli.infer
+   --data_parallel`` through ``torchrun --standalone --nproc_per_node 1``
+   (NCCL), the tracks against the first serving run's; ``cli.infer``'s
+   serving function on two gloo ranks of cuda:0, the same tracks; ``probe
+   meshscale`` (exit 0, no FAIL).
 6. Hold one f32 train step (dropout 0) with the kernels against the same
    step with the plain MSDA forward and VJP on the card, TF32 off.
 7. Hold the sampling probes' kernels against their plain versions on the
@@ -367,11 +379,18 @@ TRAIN_CASES = [
     ("train_encoder", 8, CANONICAL, 8, 48, 9875, 4, True),
     ("train_decoder", 12, CANONICAL, 8, 48, 60, 4, False),
 ]
+# the same steps with the heads cut over two ranks (cli.train --tp_size 2):
+# each rank's kernels run H = 4 heads of 48 channels
+TP2_CASES = [
+    ("train_encoder_tp2", 8, CANONICAL, 4, 48, 9875, 4, True),
+    ("train_decoder_tp2", 12, CANONICAL, 4, 48, 60, 4, False),
+]
 
 
 def phase_kernels():
     """msda_forward vs plain version at the tiny, inference encoder and
-    decoder, and train encoder and decoder shapes."""
+    decoder, and train encoder and decoder shapes, the last two also at
+    the 4 heads of a tensor-parallel rank."""
     import torch
 
     from snipper_tpu_torch.ops.msda import ms_deform_attn_torch, msda_forward
@@ -382,7 +401,7 @@ def phase_kernels():
         ("tiny", 2, [(6, 9), (3, 5), (2, 2)], 4, 8, 37, 3, False),
         ("encoder", 4, canonical, 8, 48, 9875, 4, True),
         ("decoder", 4, canonical, 8, 48, 60, 4, False),
-    ] + TRAIN_CASES
+    ] + TRAIN_CASES + TP2_CASES
     set_tf32(False)
     res = {}
     tol = TOL_F32
@@ -441,9 +460,10 @@ def _grad_errors(got, want, bf16=False):
 
 
 def phase_backward():
-    """msda_backward vs the plain VJP at the tiny and the train shapes, f32
-    and bf16 value; times of the kernel and of the plain backward (autograd
-    through grid_sample, its graph built once)."""
+    """msda_backward vs the plain VJP at the tiny and the train shapes (8
+    heads, and the 4 of a tensor-parallel rank), f32 and bf16 value;
+    times of the kernel and of the plain backward (autograd through
+    grid_sample, its graph built once)."""
     import torch
 
     from snipper_tpu_torch.ops.msda import (ms_deform_attn_torch,
@@ -451,7 +471,7 @@ def phase_backward():
                                             msda_backward)
 
     cases = [("tiny", 2, [(6, 9), (3, 5), (2, 2)], 4, 8, 37, 3, False)] \
-        + TRAIN_CASES
+        + TRAIN_CASES + TP2_CASES
     set_tf32(False)
     res = {}
     names = ("d_value", "d_loc", "d_attn")
@@ -2155,6 +2175,433 @@ def phase_train_agreement(tol_loss=1e-4, tol_grad=1e-3):
                 n_grads=len(named), step_breakdown=bd)
 
 
+# ------------------------------------------------------------- multi-GPU
+# tracks of two serving runs of the same forward (the kernels against
+# themselves, cuDNN's choices aside): TOL_FORWARD of the model's outputs,
+# scaled to the 800-pixel frames the tracks are in
+TOL_TRACKS = TOL_FORWARD * 800
+# the decoded per-snippet outputs compared before association (the tracks
+# keep only detections above the score threshold)
+DECODED = ("human_score", "pred_kpt_scores", "pred_kpts", "pred_depth")
+
+
+def _max_decoded_diff(got, want):
+    """Worst |diff| of two runs' decoded snippet results, each key over
+    the larger of 1 and its largest value in ``want``."""
+    import numpy as np
+
+    check(len(got) == len(want), f"{len(got)} vs {len(want)} snippets")
+    worst = 0.0
+    for g, w in zip(got, want):
+        for k in DECODED:
+            scale = max(1.0, float(np.abs(w[k]).max()))
+            worst = max(worst, float(np.abs(g[k] - w[k]).max()) / scale)
+    return worst
+
+
+def _max_tracks_diff(a, b):
+    """Max |diff| of two ``tracks.pkl`` dicts, which must hold the same
+    identities on the same frames."""
+    import numpy as np
+
+    check(a["max_pid"] == b["max_pid"]
+          and set(a["frames"]) == set(b["frames"]),
+          f"tracks: {a['max_pid']} vs {b['max_pid']} identities, frames "
+          f"differ: {set(a['frames']) ^ set(b['frames'])}")
+    worst = 0.0
+    for k, (pids, data) in a["frames"].items():
+        check(list(b["frames"][k][0]) == list(pids),
+              f"tracks: frame {k} identities {list(pids)} vs "
+              f"{list(b['frames'][k][0])}")
+        if data.size:
+            worst = max(worst, float(np.abs(b["frames"][k][1] - data).max()))
+    return worst
+
+
+def _rank_phase(inp):
+    """One of two gloo ranks on cuda:0 (phase_multi_gpu (a), (b), (d)): an
+    f32 canonical_t4_f2 step with dropout 0 on a data-parallel mesh (batch
+    1 a rank) and on a tensor-parallel one (the batch of 2, 4 heads a
+    rank), then ``cli.infer``'s serving function over the two ranks. Each
+    run's kernel counts are set to 0 just before it and read just after."""
+    import numpy as np
+    import torch
+
+    from snipper_tpu_torch.cli.infer import serve_snippets
+    from snipper_tpu_torch.config import Config
+    from snipper_tpu_torch.infer.pipeline import associate_snippets
+    from snipper_tpu_torch.losses.criterion import SetCriterion
+    from snipper_tpu_torch.models.snipper import build_model
+    from snipper_tpu_torch.ops.msda import ms_deform_attn
+    from snipper_tpu_torch.parallel import multihost
+    from snipper_tpu_torch.parallel.mesh import gather, make_mesh, shard_model
+    from snipper_tpu_torch.train.state import create_train_state
+    from snipper_tpu_torch.train.step import (average_gradients,
+                                              average_metrics,
+                                              batch_to_device, forward_loss)
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    rank = multihost.process_index()
+    cfg = Config.canonical_t4_f2().replace(dropout=0.0)
+    weights = torch.load(inp["weights"], map_location=dev, weights_only=True)
+    host = dict(np.load(inp["batch"]))
+    out = {}
+    for name, (dp, tp) in (("dp2", (2, 1)), ("tp2", (1, 2))):
+        set_tf32(False)
+        mesh = make_mesh(dp, tp)
+        model = build_model(cfg, device=dev, seed=0)
+        model.load_state_dict(weights)
+        shard_model(model, mesh).train()
+        state = create_train_state(cfg, model, mesh=mesh)
+        crit = SetCriterion(cfg, mesh=mesh)
+        per = 2 // dp
+        rows = slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)
+        batch = batch_to_device(
+            {"images": host["images"][rows],
+             "targets": {k: host[k][rows] for k in ("kpts2d", "depth",
+                                                    "valid")}}, dev)
+        step_ms, reduce_ms = [], []
+        for i in range(3):
+            torch.cuda.synchronize()
+            if i == 0:
+                # ---- this rank's step, with its kernels' counts at 0 ----
+                ms_deform_attn.launches = 0
+                ms_deform_attn.backward_launches = 0
+            t0 = time.perf_counter()
+            total, _, _, src = forward_loss(model, crit, batch, False)
+            grads = torch.autograd.grad(total, state.params)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            grads = average_gradients(grads, mesh)
+            ev[1].record()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            reduce_ms.append(ev[0].elapsed_time(ev[1]))
+            if i == 0:
+                launches = {"msda_forward": ms_deform_attn.launches,
+                            "msda_backward": ms_deform_attn.backward_launches}
+                # -------------------------------------------------------
+        loss = average_metrics({"loss": total.detach()}, mesh)["loss"].item()
+        names = {id(p): n for n, p in model.named_parameters()}
+        full = {names[id(p)]: (g if getattr(p, "tp_spec", None) is None
+                               else gather(g, p.tp_spec, mesh)).cpu()
+                for p, g in zip(state.params, grads)}
+        if rank == 0:
+            torch.save(full, inp[f"grads_{name}"])
+        out[name] = dict(loss=loss, src=src.cpu().numpy(), launches=launches,
+                         heads=model.transformer.encoder_layer0.self_attn
+                         .n_heads, step_ms=step_ms, allreduce_ms=reduce_ms,
+                         flat_mb=sum(g.numel() for g in grads) * 4 / 1e6)
+        del model, state, grads, full, batch, total
+        torch.cuda.empty_cache()
+
+    # (d) cli.infer's serving function on the two ranks, as phase 4 ran it
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    icfg = Config.canonical_t4()
+    model = build_model(icfg, device=dev, seed=0)
+    model.load_state_dict(torch.load(inp["infer_ckpt"], map_location=dev,
+                                     weights_only=True)["params"])
+    # ---- this rank's serving, with its kernel's count at 0 --------------
+    ms_deform_attn.launches = 0
+    served = serve_snippets(model, icfg, inp["frames"], 1, dev)
+    launches = ms_deform_attn.launches
+    # ----------------------------------------------------------------------
+    out["serve"] = dict(snippets=served["snippets"], seconds=served["seconds"],
+                        done_at=served["done_at"], launches=launches,
+                        total=len(served["results"]))
+    if rank == 0:
+        frames, max_pid = associate_snippets(
+            served["results"], *served["index"], icfg.num_frames, 1,
+            icfg.max_depth)
+        out["serve"]["tracks"] = {"frames": frames, "max_pid": max_pid}
+        out["serve"]["results"] = [{k: r[k] for k in DECODED}
+                                   for r in served["results"]]
+    return out
+
+
+def _torchrun(work, mode, argv):
+    """``python -m torch.distributed.run --standalone --nproc_per_node 1
+    chip_smoke.py --torchrun-cli MODE OUT.json ARGV``: the CLI ``mode``
+    (train or infer) under torchrun's environment; returns what the child
+    wrote (its launch counts and the CLI's result) and its output."""
+    out_json = os.path.join(work, f"torchrun_{mode}.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", os.path.abspath(__file__),
+           "--torchrun-cli", mode, out_json, *argv]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    for line in proc.stdout.splitlines()[-12:]:
+        log(f"  | {line}")
+    check(proc.returncode == 0,
+          f"torchrun {mode} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    with open(out_json) as f:
+        return json.load(f), proc.stdout
+
+
+def torchrun_cli(mode, out_json, argv):
+    """The child of :func:`_torchrun`: ``mode``'s CLI ``main(argv)`` with
+    the kernels' counts set to 0 just before and read just after, written
+    to ``out_json`` with the CLI's numbers."""
+    from snipper_tpu_torch.ops.msda import ms_deform_attn
+
+    if mode == "train":
+        from snipper_tpu_torch.cli.train import main as cli_main
+    else:
+        from snipper_tpu_torch.cli.infer import main as cli_main
+    # ---- the CLI, with every kernel's count at 0 -------------------------
+    ms_deform_attn.launches = 0
+    ms_deform_attn.backward_launches = 0
+    res = cli_main(argv)
+    launches = {"msda_forward": ms_deform_attn.launches,
+                "msda_backward": ms_deform_attn.backward_launches}
+    # ----------------------------------------------------------------------
+    if mode == "train":
+        keep = {"checkpoint": res["checkpoint"],
+                "losses": [h["loss_total"] for h in res["history"]],
+                "period_s": [h["seconds"] + h["data_seconds"]
+                             for h in res["history"]]}
+    else:
+        keep = {k: res[k] for k in ("snippets", "seconds", "done_at",
+                                    "forward_ms")}
+    with open(out_json, "w") as f:
+        json.dump({"launches": launches, **keep}, f)
+    return 0
+
+
+def phase_multi_gpu(work, card):
+    """The multi-GPU paths on one card, which shows them right, not
+    scaling: (a) an f32 canonical_t4_f2 step (dropout 0, TF32 off) on two
+    gloo ranks of cuda:0, batch 1 each, against the single-process step of
+    batch 2 on the same weights (its criterion at ``dp_size`` 2, as the
+    JAX CLI's on that mesh): loss within 1e-4 relative, every gradient
+    within 1e-3 of its scale, the same matching; (b) the same with the
+    heads cut over the two ranks (tp2, the batch of 2 on both, against
+    ``dp_size`` 1; 12 launches of each MSDA kernel per rank and step, at
+    4 heads); (c) through
+    ``torchrun --standalone --nproc_per_node 1`` (NCCL): ``cli.train`` for
+    3 bf16 steps and its checkpoint, then ``cli.infer --data_parallel``
+    over phase 4's frames, 12 launches per snippet, its tracks within
+    TOL_TRACKS of phase 4's; (d) ``cli.infer``'s serving function on the
+    two gloo ranks, the same tracks, and the decoded outputs of every
+    snippet within TOL_FORWARD of one process's serving (the tracks keep
+    only detections; random weights may have none); (e) ``probe
+    meshscale``: exit 0, no FAIL. Step times by the host clock, the
+    gradient all-reduce by CUDA events, serving rates by the CLI's
+    timestamps."""
+    import numpy as np
+    import torch
+
+    from snipper_tpu_torch.config import Config
+    from snipper_tpu_torch.data.snippet import stack_batch
+    from snipper_tpu_torch.data.synthetic import SyntheticDataset
+    from snipper_tpu_torch.losses.criterion import SetCriterion
+    from snipper_tpu_torch.ops.msda import ms_deform_attn
+    from snipper_tpu_torch.parallel import multihost
+    from snipper_tpu_torch.train.state import create_train_state
+    from snipper_tpu_torch.train.step import batch_to_device, forward_loss
+
+    res = {}
+    per_pass = Config.canonical_t4_f2().enc_layers \
+        + Config.canonical_t4_f2().dec_layers
+    # ---- the single-process reference: one f32 step of batch 2 ----------
+    set_tf32(False)
+    cfg = Config.canonical_t4_f2().replace(dropout=0.0)
+    model = perturbed_model(cfg, seed=3).train()
+    state = create_train_state(cfg, model)
+    ds = SyntheticDataset(cfg, n_samples=2, seed=0)
+    host = stack_batch([ds[0], ds[1]])
+    inp = {"weights": os.path.join(work, "mg_weights.pt"),
+           "batch": os.path.join(work, "mg_batch.npz"),
+           "grads_dp2": os.path.join(work, "mg_grads_dp2.pt"),
+           "grads_tp2": os.path.join(work, "mg_grads_tp2.pt"),
+           "infer_ckpt": os.path.join(work, "canonical_t4_seed0.pt"),
+           "frames": os.path.join(work, "frames")}
+    torch.save(model.state_dict(), inp["weights"])
+    np.savez(inp["batch"], images=host["images"], **host["targets"])
+    batch = batch_to_device(host, torch.device("cuda"))
+    names = {id(p): n for n, p in model.named_parameters()}
+    refs = {}
+    # the ranks' criteria keep the heatmap's bare sum, so that their
+    # average over a data axis of 2 is one process's at dp_size 2 (the
+    # JAX CLI's); over a model axis the ranks share one batch: dp_size 1
+    for name, dp_size in (("dp2", 2), ("tp2", 1)):
+        total, _, _, src = forward_loss(model, SetCriterion(cfg, dp_size),
+                                        batch, False)
+        grads = torch.autograd.grad(total, state.params)
+        refs[name] = ({names[id(p)]: g.cpu()
+                       for p, g in zip(state.params, grads)},
+                      total.item(), src.cpu().numpy())
+    del model, state, batch, grads, total
+    torch.cuda.empty_cache()
+
+    # ...and one process's serving of phase 4's frames, to hold (d) to
+    from snipper_tpu_torch.cli.infer import serve_snippets
+    from snipper_tpu_torch.models.snipper import build_model
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    icfg = Config.canonical_t4()
+    model = build_model(icfg, device="cuda", seed=0)
+    model.load_state_dict(torch.load(inp["infer_ckpt"], weights_only=True)
+                          ["params"])
+    single = serve_snippets(model, icfg, inp["frames"], 1,
+                            torch.device("cuda"))["results"]
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- (a), (b), (d): two gloo ranks on cuda:0 -------------------------
+    t0 = time.perf_counter()
+    ranks = multihost.spawn(_rank_phase, 2, (inp,), backend="gloo",
+                            timeout_s=600)
+    launch_s = time.perf_counter() - t0
+    for name in ("dp2", "tp2"):
+        want, want_loss, want_src = refs[name]
+        g_max = max(g.abs().max().item() for g in want.values())
+        got = torch.load(inp[f"grads_{name}"], weights_only=True)
+        worst = (0.0, "", 0.0)
+        for k, w in want.items():
+            err = (got[k] - w).abs().max().item()
+            scale = max(w.abs().max().item(), 1e-3 * g_max)
+            check(math.isfinite(err), f"{name}: non-finite gradient {k}")
+            if err / scale > worst[0]:
+                worst = (err / scale, k, err)
+        rows = [r[name] for r in ranks]
+        per = 2 if name == "tp2" else 1
+        for r, row in enumerate(rows):
+            lo = 0 if per == 2 else r
+            check(abs(row["loss"] - want_loss) <= 1e-4 * abs(want_loss),
+                  f"{name} rank {r}: loss {row['loss']} vs the single "
+                  f"process's {want_loss}")
+            check(np.array_equal(row["src"], want_src[lo:lo + per]),
+                  f"{name} rank {r} matched differently")
+            check(row["launches"] == {"msda_forward": per_pass,
+                                      "msda_backward": per_pass},
+                  f"{name} rank {r}: launches {row['launches']} in a step, "
+                  f"expected {per_pass} of each")
+        check(worst[0] <= 1e-3,
+              f"{name} gradients: {worst[1]} max|diff| {worst[2]:.3e} is "
+              f"{worst[0]:.3e} of its scale > 1e-3")
+        res[name] = dict(loss=rows[0]["loss"], want_loss=want_loss,
+                         grad_worst_rel=worst[0], grad_worst_param=worst[1],
+                         launches=[r["launches"] for r in rows],
+                         heads=rows[0]["heads"],
+                         step_ms=[statistics.median(r["step_ms"][1:])
+                                  for r in rows],
+                         allreduce_ms=[statistics.median(r["allreduce_ms"][1:])
+                                       for r in rows],
+                         flat_mb=rows[0]["flat_mb"])
+        reduce = (f"gradient all-reduce of {rows[0]['flat_mb']:.1f} MB "
+                  f"{res[name]['allreduce_ms']} ms (CUDA events; gloo "
+                  f"through the host)" if name == "dp2" else
+                  "no gradient all-reduce (a data axis of 1); the heads' "
+                  "all-reduces run inside the forward and backward")
+        log(f"multi-GPU ({name}, two gloo ranks on cuda:0, f32, TF32 off, "
+            f"dropout 0; {card}): canonical_t4_f2 step, batch {per} a "
+            f"rank, {rows[0]['heads']} heads a rank; loss "
+            f"{rows[0]['loss']:.6f} vs one process's batch-2 step "
+            f"{want_loss:.6f}; worst gradient {worst[1]} {worst[0]:.3e} of "
+            f"its scale (tol 1e-3); same matching; launches per rank and "
+            f"step {[r['launches'] for r in rows]}; step "
+            f"{res[name]['step_ms']} ms per rank (host clock, median of 2 "
+            f"after the first); {reduce}")
+    serve = [r["serve"] for r in ranks]
+    with open(os.path.join(work, "out", "tracks.pkl"), "rb") as f:
+        phase4 = pickle.load(f)
+    n_total = serve[0]["total"]
+    check(sum(s["snippets"] for s in serve) == n_total and all(
+          s["launches"] == per_pass * s["snippets"] for s in serve),
+          "two-rank serving: snippets and launches "
+          f"{[(s['snippets'], s['launches']) for s in serve]} over "
+          f"{n_total}")
+    diff_d = _max_tracks_diff(phase4, serve[0]["tracks"])
+    check(diff_d <= TOL_TRACKS, f"two-rank serving tracks differ from "
+          f"phase 4's by {diff_d} > {TOL_TRACKS}")
+    dec_d = _max_decoded_diff(serve[0]["results"], single)
+    check(dec_d <= TOL_FORWARD, f"two-rank serving's decoded outputs "
+          f"differ from one process's by {dec_d} of scale > {TOL_FORWARD}")
+    span = max(s["done_at"][-1] for s in serve) - min(s["done_at"][0]
+                                                      for s in serve)
+    # every rank's first snippet excluded, as phase 4's rate does
+    res["serve_two_ranks"] = dict(
+        snippets=[s["snippets"] for s in serve],
+        launches=[s["launches"] for s in serve], tracks_diff=diff_d,
+        decoded_diff=dec_d,
+        snippets_per_s=(n_total - 2) / span if span > 0 else None,
+        seconds=[s["seconds"] for s in serve], launch_s=launch_s)
+    log(f"serving function on two gloo ranks of cuda:0 ({card}): "
+        f"{res['serve_two_ranks']['snippets']} snippets and "
+        f"{res['serve_two_ranks']['launches']} msda_forward launches per "
+        f"rank ({per_pass} per snippet); tracks within {diff_d:.3e} of "
+        f"phase 4's (tol {TOL_TRACKS:g}), decoded outputs (all 60 queries, "
+        f"before the score threshold) within {dec_d:.3e} of one process's "
+        f"(of scale; tol {TOL_FORWARD:g}); "
+        f"{res['serve_two_ranks']['snippets_per_s']} snippets/s over both "
+        f"ranks (first of each excluded), the two sharing one card")
+
+    # ---- (c) torchrun at world size 1 (NCCL) -----------------------------
+    tr, out = _torchrun(work, "train", [
+        "--preset", "canonical_t4_f2", "--synthetic", "--batch_size", "2",
+        "--synthetic_distinct", "2", "--epochs", "1", "--steps_per_epoch",
+        "3", "--eval_every", "2", "--output_dir",
+        os.path.join(work, "torchrun_train"), "--device", "cuda"])
+    check("process group: nccl, world 1" in out,
+          "torchrun cli.train: no NCCL process group line")
+    check(tr["launches"] == {"msda_forward": 3 * per_pass,
+                             "msda_backward": 3 * per_pass},
+          f"torchrun cli.train launches {tr['launches']} in 3 steps")
+    check(all(math.isfinite(x) for x in tr["losses"])
+          and os.path.exists(tr["checkpoint"]),
+          f"torchrun cli.train: losses {tr['losses']}, checkpoint "
+          f"{tr['checkpoint']}")
+    ti, out = _torchrun(work, "infer", [
+        "--preset", "canonical_t4", "--data_dir", inp["frames"],
+        "--output_dir", os.path.join(work, "torchrun_infer"), "--seq_gap",
+        "1", "--resume", inp["infer_ckpt"], "--data_parallel", "--device",
+        "cuda"])
+    check("process group: nccl, world 1" in out,
+          "torchrun cli.infer: no NCCL process group line")
+    check(ti["launches"]["msda_forward"] == per_pass * ti["snippets"],
+          f"torchrun cli.infer: {ti['launches']} launches for "
+          f"{ti['snippets']} snippets")
+    with open(os.path.join(work, "torchrun_infer", "tracks.pkl"), "rb") as f:
+        diff_c = _max_tracks_diff(phase4, pickle.load(f))
+    check(diff_c <= TOL_TRACKS, f"torchrun cli.infer tracks differ from "
+          f"phase 4's by {diff_c} > {TOL_TRACKS}")
+    done = ti["done_at"]
+    res["torchrun"] = dict(
+        train_launches=tr["launches"], train_losses=tr["losses"],
+        train_period_ms=[x * 1e3 for x in tr["period_s"]],
+        infer_launches=ti["launches"], infer_snippets=ti["snippets"],
+        infer_snippets_per_s=(ti["snippets"] - 1) / (done[-1] - done[0]),
+        infer_tracks_diff=diff_c)
+    log(f"torchrun --standalone --nproc_per_node 1 (NCCL; {card}): "
+        f"cli.train 3 bf16 steps, launches {tr['launches']}, periods "
+        f"{[round(x, 2) for x in res['torchrun']['train_period_ms']]} ms, "
+        f"losses {[round(x, 4) for x in tr['losses']]}, checkpoint "
+        f"{os.path.basename(tr['checkpoint'])}; cli.infer --data_parallel "
+        f"{ti['snippets']} snippets, {ti['launches']['msda_forward']} "
+        f"msda_forward launches, {res['torchrun']['infer_snippets_per_s']:.3f}"
+        f" snippets/s (first excluded), tracks within {diff_c:.3e} of "
+        f"phase 4's (tol {TOL_TRACKS:g})")
+
+    # ---- (e) probe meshscale ---------------------------------------------
+    log("probe meshscale (python -m snipper_tpu_torch.scripts.probe "
+        "meshscale):")
+    ms_deform_attn.launches = 0
+    rc, out = _run_probe(["meshscale", "--device", "cuda"])
+    ms_launches = ms_deform_attn.launches
+    check(rc == 0 and "FAIL" not in out and out.rstrip().endswith("DONE")
+          and "n=1: " in out and ms_launches > 0,
+          f"probe meshscale exited {rc}, printed FAIL, or launched "
+          f"{ms_launches}")
+    res["meshscale"] = dict(lines=[ln for ln in out.splitlines()
+                                   if ln.startswith("n=")],
+                            launches=ms_launches)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2226,6 +2673,8 @@ def main() -> int:
         harness_res = phase_harness(work)
         # 5c. a profiled training run, the label dump
         prof_res = phase_profile_labels(work, card, real_res["root"])
+        # 5d. the multi-GPU paths on this card
+        mg_res = phase_multi_gpu(work, card)
     # 6. a train step, kernels against the plain MSDA
     agree_res = phase_train_agreement()
     # 8. the probe path
@@ -2261,6 +2710,15 @@ def main() -> int:
         "per_eval_batch_launches": eval_res["per_batch"],
         "real_train_launches": real_res["train_launches"]["msda_forward"],
         "real_eval_launches": real_res["eval_launches"]["msda_forward"],
+        "dp2_step_launches_per_rank": [
+            r["msda_forward"] for r in mg_res["dp2"]["launches"]],
+        "tp2_step_launches_per_rank": [
+            r["msda_forward"] for r in mg_res["tp2"]["launches"]],
+        "two_rank_serving_launches": mg_res["serve_two_ranks"]["launches"],
+        "torchrun_train_launches":
+            mg_res["torchrun"]["train_launches"]["msda_forward"],
+        "torchrun_infer_launches":
+            mg_res["torchrun"]["infer_launches"]["msda_forward"],
         "shapes": shapes_res,
     }, {
         "name": "msda_backward",
@@ -2283,6 +2741,12 @@ def main() -> int:
         "profiled_train_launches": prof_res["launches"]["msda_backward"],
         "real_train_launches": real_res["train_launches"]["msda_backward"],
         "real_eval_launches": real_res["eval_launches"]["msda_backward"],
+        "dp2_step_launches_per_rank": [
+            r["msda_backward"] for r in mg_res["dp2"]["launches"]],
+        "tp2_step_launches_per_rank": [
+            r["msda_backward"] for r in mg_res["tp2"]["launches"]],
+        "torchrun_train_launches":
+            mg_res["torchrun"]["train_launches"]["msda_backward"],
         "shapes": bwd_res,
     }]
     k2 = win_res["win2d_sample"]
@@ -2360,7 +2824,13 @@ def main() -> int:
         f"kernels vs plain: "
         f"gradients within {agree_res['grad_worst_rel']:.3e} of scale; "
         f"probe op windowed2d_pallas {probe_res['op_ms']['windowed2d_pallas']}"
-        f" ms/op-call (relerr {probe_res['relerr']:.2e}); "
+        f" ms/op-call (relerr {probe_res['relerr']:.2e}); multi-GPU on "
+        f"one card: dp2 step {mg_res['dp2']['step_ms']} ms with a "
+        f"{mg_res['dp2']['allreduce_ms']} ms gradient all-reduce (gloo), "
+        f"tp2 step {mg_res['tp2']['step_ms']} ms, two-rank serving "
+        f"{mg_res['serve_two_ranks']['snippets_per_s']} snippets/s, "
+        f"torchrun cli.infer --data_parallel "
+        f"{mg_res['torchrun']['infer_snippets_per_s']:.3f} snippets/s; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -2371,4 +2841,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--torchrun-cli"]:
+        sys.exit(torchrun_cli(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit(main())

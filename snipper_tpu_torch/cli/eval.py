@@ -20,6 +20,12 @@ profile's config, so that the stats are the profile's.
 the port's model always samples with the exact ``msda_forward``.
 ``--save_vis`` writes ``{output_dir}/eval_vis/eval_b{batch}_s{i}.jpg``
 for the first two batches.
+
+On several GPUs, one process per GPU, the validation set sharded over
+them (padded by wrap-around to a multiple of N, as the reference's
+``DistributedSampler``; rank 0 renders, merges and writes):
+
+    torchrun --nproc_per_node N -m snipper_tpu_torch.cli.eval ...
 """
 
 from __future__ import annotations
@@ -38,6 +44,9 @@ from snipper_tpu_torch.data.loader import DataLoader
 from snipper_tpu_torch.infer.fast import PROFILE_HELP
 from snipper_tpu_torch.losses.criterion import SetCriterion
 from snipper_tpu_torch.models.snipper import build_model, resolve_device
+from snipper_tpu_torch.parallel.mesh import batch_sharding, make_mesh
+from snipper_tpu_torch.parallel.multihost import distributed, \
+    is_main_process
 from snipper_tpu_torch.train.engine import evaluate
 
 
@@ -64,18 +73,27 @@ def main(argv=None) -> dict:
     """Evaluate; returns ``{"stats", "batches", "batch_ms", "seconds"}``:
     the stats written to ``eval_stats.json``, the batch count, each batch's
     host time in ms (forward, criterion and outputs on the host) and the
-    wall time of the eval loop."""
+    wall time of the eval loop (the batches and times this rank's)."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
+    with distributed(resolve_device(args.device)) as device:
+        return run_eval(parser, args, device)
+
+
+def run_eval(parser, args, device) -> dict:
+    """``main`` on this rank's ``device``, in the process group (if any)
+    that ``main`` joined."""
     # the checkpoint is read under the preset's config; with --fast the
     # data and the eval run under the profile's
     cfg, state = load_state(parser, args, build_config(args))
+    mesh = make_mesh()
+    main_rank = is_main_process()
     os.makedirs(args.output_dir, exist_ok=True)
 
     val_ds = build_dataset(cfg, args, "val")
     loader = DataLoader(val_ds, cfg.batch_size, shuffle=False,
-                        drop_last=False, num_workers=args.num_workers)
+                        drop_last=False, num_workers=args.num_workers,
+                        **batch_sharding(mesh))
 
     model = build_model(cfg, device=device, seed=cfg.seed)
     if state is not None:
@@ -83,13 +101,17 @@ def main(argv=None) -> dict:
 
     t0 = time.perf_counter()
     stats = evaluate(
-        model, SetCriterion(cfg), loader, cfg, device, collect_results=True,
+        model, SetCriterion(cfg, mesh=mesh), loader, cfg, device,
+        collect_results=True, mesh=mesh,
         save_vis_dir=(os.path.join(args.output_dir, "eval_vis")
-                      if args.save_vis else None))
+                      if args.save_vis and main_rank else None))
     seconds = time.perf_counter() - t0
     results = stats.pop("_results")
     n_batches = stats.pop("_batches")
     batch_ms = [x * 1e3 for x in stats.pop("_batch_seconds")]
+    if not main_rank:
+        return {"stats": stats, "batches": n_batches, "batch_ms": batch_ms,
+                "seconds": seconds}
 
     def dump_stats():
         with open(os.path.join(args.output_dir, "eval_stats.json"),

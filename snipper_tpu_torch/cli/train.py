@@ -20,6 +20,20 @@ step on the device; the validation set is always warped on the host.
 ``--profile_dir DIR`` traces ``--profile_steps`` steps of the first epoch
 with ``torch.profiler`` into DIR (a Chrome trace) and prints the top
 device kernels by self time per step (``utils/profiling.py``).
+
+On several GPUs, one process per GPU:
+
+    torchrun --nproc_per_node N -m snipper_tpu_torch.cli.train \
+        --preset canonical_t4_f2 ... [--tp_size 2]
+
+The ranks form a ``(N / tp_size) x tp_size`` mesh (``parallel/mesh.py``).
+Each data rank loads ``--batch_size`` samples of its own shard, so the
+global batch is ``batch_size x N / tp_size``, and the gradients are
+averaged over the data ranks; ``--tp_size`` > 1 cuts the transformer's
+heads and FFN over the ranks of each model group. Every rank builds the
+model from the same seed and takes rank 0's weights (and resumed state);
+rank 0 prints, writes ``log.txt`` and the checkpoints, which hold the
+full state at any ``tp_size``.
 """
 
 from __future__ import annotations
@@ -36,6 +50,14 @@ from snipper_tpu_torch.cli.common import (add_config_args, add_data_args,
 from snipper_tpu_torch.data.loader import DataLoader
 from snipper_tpu_torch.losses.criterion import SetCriterion
 from snipper_tpu_torch.models.snipper import build_model, resolve_device
+from snipper_tpu_torch.parallel.mesh import (batch_sharding,
+                                             gather_state_dict, make_mesh,
+                                             shard_model)
+from snipper_tpu_torch.parallel.multihost import (broadcast_module,
+                                                  broadcast_object,
+                                                  distributed,
+                                                  is_main_process, print0,
+                                                  process_count)
 from snipper_tpu_torch.train.checkpoint import (latest_checkpoint,
                                                 load_checkpoint,
                                                 load_torchvision_backbone,
@@ -75,12 +97,20 @@ def main(argv=None) -> dict:
     """Train; returns ``{"start_epoch", "history", "checkpoint", "eval",
     "seconds"}``: per train step its metrics and host seconds, the last
     checkpoint's path and the last evaluation's stats."""
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    device = resolve_device(args.device)
+    args = build_parser().parse_args(argv)
+    with distributed(resolve_device(args.device)) as device:
+        return train(args, device)
+
+
+def train(args, device: torch.device) -> dict:
+    """``main`` on this rank's ``device``, in the process group (if any)
+    that ``main`` joined."""
     cfg = build_config(args)
+    mesh = make_mesh(-1, cfg.tp_size)
+    main_rank = is_main_process()
     os.makedirs(args.output_dir, exist_ok=True)
-    print(f"config: {cfg}", flush=True)
+    print0(f"config: {cfg}")
+    print0(f"mesh: data {mesh.dp} x model {mesh.tp}")
 
     train_ds = build_dataset(cfg, args, "train",
                              device_preprocess=args.device_preprocess)
@@ -90,15 +120,17 @@ def main(argv=None) -> dict:
     # device_prefetch's copy does not block; the eval pins in batch_to_device
     train_loader = DataLoader(train_ds, cfg.batch_size, shuffle=True,
                               seed=cfg.seed, num_workers=args.num_workers,
-                              pin_memory=device.type == "cuda")
+                              pin_memory=device.type == "cuda",
+                              **batch_sharding(mesh))
     val_loader = DataLoader(val_ds, cfg.batch_size, shuffle=False,
-                            num_workers=args.num_workers)
+                            num_workers=args.num_workers,
+                            **batch_sharding(mesh))
     steps_per_epoch = args.steps_per_epoch or max(len(train_loader), 1)
     if steps_per_epoch % cfg.grad_accum_steps:
-        print(f"WARNING: steps_per_epoch {steps_per_epoch} is not a "
-              f"multiple of grad_accum_steps {cfg.grad_accum_steps}: "
-              "accumulation windows span epoch boundaries and a trailing "
-              "partial window's gradients are dropped at exit", flush=True)
+        print0(f"WARNING: steps_per_epoch {steps_per_epoch} is not a "
+               f"multiple of grad_accum_steps {cfg.grad_accum_steps}: "
+               "accumulation windows span epoch boundaries and a trailing "
+               "partial window's gradients are dropped at exit")
 
     model = build_model(cfg, device=device, seed=cfg.seed)
     if args.pretrained_torch:
@@ -106,31 +138,44 @@ def main(argv=None) -> dict:
 
         model.load_state_dict(load_reference_checkpoint(
             args.pretrained_torch, cfg))
-        print(f"imported torch checkpoint {args.pretrained_torch}",
-              flush=True)
+        print0(f"imported torch checkpoint {args.pretrained_torch}")
     elif args.pretrained_backbone:
         n = load_torchvision_backbone(model, args.pretrained_backbone, cfg)
-        print(f"imported {n} tensors of the torchvision backbone "
-              f"{args.pretrained_backbone}", flush=True)
+        print0(f"imported {n} tensors of the torchvision backbone "
+               f"{args.pretrained_backbone}")
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"parameters: {n_params / 1e6:.1f}M on {device}", flush=True)
+    print0(f"parameters: {n_params / 1e6:.1f}M on {device}")
 
-    crit = SetCriterion(cfg)
-    state = create_train_state(cfg, model, steps_per_epoch)
     start_epoch = 0
     ckpt_dir = os.path.join(args.output_dir, "ckpts")
     resume = args.resume
     if resume in ("auto", "latest"):
-        resume = latest_checkpoint(ckpt_dir)
+        resume = broadcast_object(latest_checkpoint(ckpt_dir))
         if resume is None:
-            print("--resume auto: no checkpoint yet — starting fresh",
-                  flush=True)
-    if resume:
-        ckpt = load_checkpoint(resume)
+            print0("--resume auto: no checkpoint yet — starting fresh")
+    # rank 0's weights and resumed state on every rank, then this rank's
+    # tensor-parallel shard
+    ckpt = (broadcast_object(load_checkpoint(resume) if main_rank else None)
+            if resume else None)
+    if ckpt is not None:
         model.load_state_dict(ckpt["params"])
+    broadcast_module(model)
+    shard_model(model, mesh)
+    crit = SetCriterion(cfg, mesh=mesh)
+    state = create_train_state(cfg, model, steps_per_epoch, mesh=mesh)
+    if ckpt is not None:
         state.load_state_dict(ckpt["opt_state"], ckpt["step"])
         start_epoch = state.step // steps_per_epoch
-        print(f"resumed from {resume} at epoch {start_epoch}", flush=True)
+        print0(f"resumed from {resume} at epoch {start_epoch}")
+    del ckpt
+    # the window's num_traj needs every microbatch's targets of the
+    # window; each rank sees only its shard, so over several ranks it
+    # stays microbatch-local (JAX cli/train.py:144-151)
+    accum = cfg.grad_accum_steps if process_count() == 1 else 1
+    if accum != cfg.grad_accum_steps:
+        print0("WARNING: multi-process run — the grad-accumulation "
+               "num_traj normalizer is microbatch-local (exact window "
+               "num_traj needs single-process target visibility)")
 
     guard = PreemptionGuard()
     history, ckpt_path, eval_stats = [], None, None
@@ -145,35 +190,40 @@ def main(argv=None) -> dict:
             train_stats, hist = train_one_epoch(
                 state, crit, train_loader, epoch, generator, device,
                 mixed_precision=args.mixed_precision,
-                stop_flag=lambda: guard.should_stop,
+                stop_flag=guard.poll,
                 max_steps=args.steps_per_epoch,
-                grad_accum_steps=cfg.grad_accum_steps,
-                profile_dir=(args.profile_dir if epoch == start_epoch
+                grad_accum_steps=accum,
+                profile_dir=(args.profile_dir
+                             if epoch == start_epoch and main_rank
                              else None),
                 profile_steps=args.profile_steps)
             history += hist
             ckpt_path = save_checkpoint(
-                ckpt_dir, {"params": model.state_dict(),
+                ckpt_dir, {"params": gather_state_dict(model.state_dict(),
+                                                       mesh),
                            "opt_state": state.state_dict(),
                            "step": state.step}, epoch)
-            print(f"saved {ckpt_path}", flush=True)
+            stop = guard.poll()  # a signal during the epoch's last step
+            print0(f"saved {ckpt_path}")
 
             log = {"epoch": epoch,
                    **{f"train_{k}": v for k, v in train_stats.items()}}
-            if not guard.should_stop and (epoch + 1) % args.eval_every == 0:
-                eval_stats = evaluate(model, crit, val_loader, cfg, device)
+            if not stop and (epoch + 1) % args.eval_every == 0:
+                eval_stats = evaluate(model, crit, val_loader, cfg, device,
+                                      mesh=mesh)
                 log.update({f"test_{k}": v for k, v in eval_stats.items()
                             if not k.startswith("_")})
-            with open(os.path.join(args.output_dir, "log.txt"), "a") as f:
-                f.write(json.dumps(log) + "\n")
-            if guard.should_stop:
-                print("checkpoint saved on preemption — exiting",
-                      flush=True)
+            if main_rank:
+                with open(os.path.join(args.output_dir, "log.txt"),
+                          "a") as f:
+                    f.write(json.dumps(log) + "\n")
+            if stop:
+                print0("checkpoint saved on preemption — exiting")
                 break
     finally:
         guard.restore()
     seconds = time.time() - t0
-    print(f"done in {seconds:.0f}s", flush=True)
+    print0(f"done in {seconds:.0f}s")
     return {"start_epoch": start_epoch, "history": history,
             "checkpoint": ckpt_path, "eval": eval_stats, "seconds": seconds}
 

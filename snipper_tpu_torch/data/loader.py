@@ -7,7 +7,9 @@ samples of a batch, and ``device_prefetch`` (``:146-158``), which keeps the
 next batch's copy to the card in flight while the current step runs.
 A last partial batch is dropped unless ``drop_last=False``.
 The process shard is passed in explicitly (``process_index``,
-``process_count``); a single process reads the whole dataset. Every process
+``process_count``; the CLIs pass ``parallel.mesh.batch_sharding``, the
+data rank, so that the ranks of one model group read the same shard); a
+single process reads the whole dataset. Every process
 derives the same permutation from ``(seed, epoch)``, pads it by wrap-around
 to a multiple of ``process_count`` and takes its strided slice (the
 ``DistributedSampler`` role, reference ``main.py:229-231``).

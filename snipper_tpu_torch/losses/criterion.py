@@ -9,6 +9,13 @@ cells), ``root``, ``joint``, ``joint_disp``, ``joint_cont`` and
 every earlier decoder layer with their weights looked up by suffix. Every
 per-target normalizer and ``num_traj`` reproduce the reference because
 padded target rows carry zero visibility.
+
+Over a data-parallel mesh each rank computes its own batch's loss with the
+reference's normalizer (``models/model.py:521-526``): ``num_traj`` summed
+over the data group and divided by its size, clamped to >= 1. The ranks'
+losses, averaged as their gradients are, then equal the JAX package's
+loss over the global batch; the heatmap's bare sum keeps ``dp_size`` 1 per
+rank, since that average is JAX's ``/ dp_size`` of the global sum.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from snipper_tpu_torch.config import Config
 from snipper_tpu_torch.data.skeleton import ROOT_JOINT_CONT
@@ -70,8 +78,11 @@ def _gather_matched(pred: torch.Tensor, src_idx: torch.Tensor):
 class SetCriterion:
     """Functional criterion; construct once from a Config."""
 
-    def __init__(self, cfg: Config, dp_size: int = 1):
+    def __init__(self, cfg: Config, dp_size: int = 1, mesh=None):
+        """``mesh``: a ``parallel.mesh.Mesh``; its data group sums
+        ``num_traj``."""
         self.cfg = cfg
+        self.mesh = mesh
         self.weights = loss_weight_dict(cfg)
         self.match_weights = matcher_weight_dict(cfg)
         # the heatmap loss is a bare sum (reference model.py:441-443) that
@@ -200,10 +211,15 @@ class SetCriterion:
         layer)``. ``num_traj``: an external normalizer used as it is (the
         accumulation window's ``max(total_valid / k, 1)``,
         ``train/engine.py::inject_window_num_traj``); by default the
-        batch's valid count clamped to >= 1."""
+        batch's valid count (over a mesh, the data group's mean count)
+        clamped to >= 1."""
         if num_traj is None:
-            num_traj = torch.clamp(
-                torch.sum(targets["valid"].to(torch.float32)), min=1.0)
+            num_traj = torch.sum(targets["valid"].to(torch.float32))
+            group = None if self.mesh is None else self.mesh.data_group
+            if group is not None:
+                dist.all_reduce(num_traj, group=group)
+                num_traj = num_traj / self.mesh.dp
+            num_traj = torch.clamp(num_traj, min=1.0)
         else:
             num_traj = torch.as_tensor(num_traj, dtype=torch.float32,
                                        device=outputs["pred_logits"].device)

@@ -7,6 +7,12 @@ and parameter names. Dropout sits at the JAX modules' ``nn.Dropout`` sites
 (``nn.remat``) because its XLA sampling saves large one-hot intermediates;
 the port's sampling kernel saves only its three inputs, so nothing here is
 rematerialized.
+
+With a mesh whose model axis is > 1 (``parallel/mesh.py::shard_model``),
+each attention module keeps ``n_heads / tp`` heads and the FFN
+``d_ffn / tp`` features: ``copy_to_model`` at each column-parallel input,
+``row_parallel`` at each row-parallel output. ``mesh`` is None otherwise,
+and the forward is the single-device one.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from snipper_tpu_torch.models.init import fill_, tag
 from snipper_tpu_torch.ops.deform_attn import (device_constant,
                                                temporal_adjacency,
                                                temporal_deform_sample)
+from snipper_tpu_torch.parallel.mesh import (copy_to_model, dropout_shard,
+                                             row_parallel)
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -55,7 +63,9 @@ class TemporalDeformAttn(nn.Module):
         super().__init__()
         self.d_model, self.n_levels = d_model, n_levels
         self.n_heads, self.n_points = n_heads, n_points
+        self.head_dim = d_model // n_heads
         self.n_frames = n_frames
+        self.mesh = None
         H, L, P = n_heads, n_levels, n_points
         self.value_proj = tag(nn.Linear(d_model, d_model), "xavier")
         self.sampling_offsets = tag(
@@ -64,6 +74,11 @@ class TemporalDeformAttn(nn.Module):
         self.attention_weights = tag(nn.Linear(d_model, H * L * P), "zeros")
         self.output_proj = tag(nn.Linear(d_model, d_model), "xavier")
 
+    def set_mesh(self, mesh):
+        """Run this rank's ``n_heads / tp`` heads of the model group."""
+        self.mesh = mesh
+        self.n_heads //= mesh.tp
+
     def forward(self, query, reference_points, value_feats, spatial_shapes,
                 padding_mask=None, return_attn=False):
         # query [B, T1, Lq, C]; reference_points [B, T1, Lq, L, 2];
@@ -71,13 +86,16 @@ class TemporalDeformAttn(nn.Module):
         B, T1, Lq, C = query.shape
         _, T2, S, _ = value_feats.shape
         H, L, P = self.n_heads, self.n_levels, self.n_points
-        D = self.d_model // H
+        D = self.head_dim
 
-        value = self.value_proj(value_feats)
+        value = self.value_proj(copy_to_model(value_feats, self.mesh))
         if padding_mask is not None:
             value = value.masked_fill(padding_mask[..., None], 0.0)
         value = value.reshape(B, T2, S, H, D)
 
+        # every input of the heads' region is a column-parallel input
+        query = copy_to_model(query, self.mesh)
+        reference_points = copy_to_model(reference_points, self.mesh)
         off = self.sampling_offsets(query).reshape(B, T1, Lq, H, L, P, 2)
         # offsets are divided by (w, h) per level, x then y
         normalizer = device_constant([[w, h] for h, w in spatial_shapes],
@@ -89,7 +107,7 @@ class TemporalDeformAttn(nn.Module):
         adjacency = temporal_adjacency(self.n_frames, T1)
         out, overflow = temporal_deform_sample(value, spatial_shapes, loc,
                                                logits, adjacency)
-        out = self.output_proj(out)
+        out = row_parallel(self.output_proj, out, self.mesh)
         if return_attn:
             attn = torch.softmax(logits.reshape(B, T1, Lq, H, L * P),
                                  -1).reshape(B, T1, Lq, H, L, P)
@@ -104,7 +122,9 @@ class TorchMultiheadAttention(nn.Module):
     def __init__(self, d_model: int, n_heads: int, dropout: float = 0.0):
         super().__init__()
         self.d_model, self.n_heads = d_model, n_heads
+        self.head_dim = d_model // n_heads
         self.dropout = dropout
+        self.mesh = None
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
         self.out_proj = tag(nn.Linear(d_model, d_model), "xavier")
@@ -113,19 +133,31 @@ class TorchMultiheadAttention(nn.Module):
         fill_(self.in_proj_weight, "xavier", generator)
         fill_(self.in_proj_bias, "zeros", generator)
 
+    def set_mesh(self, mesh):
+        """Run this rank's ``n_heads / tp`` heads of the model group (q, k
+        and v each cut by heads in ``in_proj``)."""
+        self.mesh = mesh
+        self.n_heads //= mesh.tp
+
     def forward(self, q, k, v):
-        # q, k, v: [B, N, C]
-        C, H = self.d_model, self.n_heads
-        D = C // H
+        # q, k, v: [B, N, C]; C = H * D here (this rank's heads)
+        H, D = self.n_heads, self.head_dim
+        C = H * D
         w, b = self.in_proj_weight, self.in_proj_bias
-        qh = F.linear(q, w[:C], b[:C]).reshape(*q.shape[:-1], H, D)
-        kh = F.linear(k, w[C:2 * C], b[C:2 * C]).reshape(*k.shape[:-1], H, D)
-        vh = F.linear(v, w[2 * C:], b[2 * C:]).reshape(*v.shape[:-1], H, D)
+        q_in = copy_to_model(q, self.mesh)
+        k_in = q_in if k is q else copy_to_model(k, self.mesh)
+        v_in = copy_to_model(v, self.mesh)
+        qh = F.linear(q_in, w[:C], b[:C]).reshape(*q.shape[:-1], H, D)
+        kh = F.linear(k_in, w[C:2 * C], b[C:2 * C]).reshape(*k.shape[:-1],
+                                                            H, D)
+        vh = F.linear(v_in, w[2 * C:], b[2 * C:]).reshape(*v.shape[:-1], H,
+                                                          D)
         logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / math.sqrt(D)
-        probs = F.dropout(torch.softmax(logits, dim=-1), self.dropout,
-                          self.training)
+        probs = dropout_shard(torch.softmax(logits, dim=-1), self.dropout,
+                              self.training, 1, self.mesh)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, vh)
-        return self.out_proj(out.reshape(*q.shape[:-1], C))
+        return row_parallel(self.out_proj, out.reshape(*q.shape[:-1], C),
+                            self.mesh)
 
 
 class EncoderLayer(nn.Module):
@@ -139,6 +171,11 @@ class EncoderLayer(nn.Module):
         self.linear1 = tag(nn.Linear(d_model, d_ffn), "xavier")
         self.linear2 = tag(nn.Linear(d_ffn, d_model), "xavier")
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.mesh = None
+
+    def set_mesh(self, mesh):
+        """Run this rank's ``d_ffn / tp`` FFN features."""
+        self.mesh = mesh
 
     def forward(self, src, pos, reference_points, spatial_shapes,
                 padding_mask=None):
@@ -146,8 +183,10 @@ class EncoderLayer(nn.Module):
         src2, overflow = self.self_attn(src + pos, reference_points, src,
                                         spatial_shapes, padding_mask)
         src = self.norm1(src + F.dropout(src2, p, train))
-        h = F.dropout(F.relu(self.linear1(src)), p, train)
-        h = self.linear2(h)
+        h = F.relu(self.linear1(copy_to_model(src, self.mesh)))
+        h = row_parallel(self.linear2,
+                         dropout_shard(h, p, train, -1, self.mesh),
+                         self.mesh)
         return self.norm2(src + F.dropout(h, p, train)), overflow
 
 
@@ -164,6 +203,11 @@ class DecoderLayer(nn.Module):
         self.linear1 = tag(nn.Linear(d_model, d_ffn), "xavier")
         self.linear2 = tag(nn.Linear(d_ffn, d_model), "xavier")
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+        self.mesh = None
+
+    def set_mesh(self, mesh):
+        """Run this rank's ``d_ffn / tp`` FFN features."""
+        self.mesh = mesh
 
     def forward(self, tgt, query_pos, reference_points, src, spatial_shapes,
                 src_padding_mask=None, return_attn=False):
@@ -183,8 +227,10 @@ class DecoderLayer(nn.Module):
         tgt = self.norm1(tgt + F.dropout(res[0], p, train))
 
         # ffn, then norm3 (:257-263)
-        h = F.dropout(F.relu(self.linear1(tgt)), p, train)
-        h = self.linear2(h)
+        h = F.relu(self.linear1(copy_to_model(tgt, self.mesh)))
+        h = row_parallel(self.linear2,
+                         dropout_shard(h, p, train, -1, self.mesh),
+                         self.mesh)
         attn_data = res[2] if return_attn else None
         return self.norm3(tgt + F.dropout(h, p, train)), attn_data
 

@@ -1,14 +1,16 @@
 """Probes on the card: the port of ``scripts/probe.py``'s ``op`` and
 ``lanegather`` subcommands, which time the sampling formulations and the
-TPU kernels' questions at the JAX probe's own sizes, and of its ``serve``
+TPU kernels' questions at the JAX probe's own sizes, of its ``serve``
 and ``fast`` subcommands, which time the serving artifact against the live
-forward and the ``--fast`` profiles.
+forward and the ``--fast`` profiles, and of ``meshscale``, which times
+data-parallel serving over N ranks.
 
     python -m snipper_tpu_torch.scripts.probe op \\
         --impls windowed,windowed2d,windowed2d_pallas,pmerged,pallas,core
     python -m snipper_tpu_torch.scripts.probe lanegather
     python -m snipper_tpu_torch.scripts.probe serve [--preset canonical_t4]
     python -m snipper_tpu_torch.scripts.probe fast [--specs "base|enc4,p2"]
+    python -m snipper_tpu_torch.scripts.probe meshscale [--preset light_t4]
 
 Each prints the JAX probe's lines with the card's times, then ``DONE``.
 ``op`` samples at encoder scale (canonical 600x800 level shapes, 4 folded
@@ -40,8 +42,18 @@ seeds one model, maps its one state dict to each profile of ``--specs``
 base's; a spec that raises prints ``FAIL`` and the probe exits non-zero
 after ``DONE``. Both run the forward in f32, as ``cli.infer`` does.
 
-The JAX probe's other subcommands (forward, train, split, meshscale) are
-not yet ported and are refused.
+``meshscale`` times the forward of a global batch of N snippets split
+over N ranks, N in {1, 4, 8}, one rank per card (NCCL), or N gloo ranks
+on the CPU with ``--device cpu`` (the CPU counts as one device unless
+``--devices`` says more, and the ranks split its cores), and prints the
+JAX probe's overhead efficiency ``eff(N) = t(1, b1) / (t(N, bN) / N)``
+(1.0: the split adds no overhead). ``t(N, bN)`` is the slowest rank's
+time per forward between two barriers. N larger than the devices prints
+``n=N: skipped (k devices)``. Each rank must hold exactly B/N rows of the
+global batch, disjoint from the others'.
+
+The JAX probe's other subcommands (forward, train, split) are not yet
+ported and are refused.
 """
 
 from __future__ import annotations
@@ -55,7 +67,7 @@ import traceback
 import numpy as np
 import torch
 
-NOT_PORTED = ("forward", "train", "split", "meshscale")
+NOT_PORTED = ("forward", "train", "split")
 
 
 # ---------------------------------------------------------------- timing
@@ -331,6 +343,92 @@ def cmd_fast(args) -> int:
     return failed
 
 
+def _meshscale_rank(cfg, n: int, K: int, device_type: str):
+    """One rank's part of ``meshscale`` at N = ``n``: its B/N rows of the
+    seeded global batch through the seeded model, K forwards timed between
+    two barriers. Returns ``(seconds per forward, row ids)`` of every rank
+    (``n == 1``: this process alone, no process group)."""
+    import os
+
+    from snipper_tpu_torch.models.snipper import build_model
+    from snipper_tpu_torch.parallel import multihost
+
+    rank = multihost.process_index()
+    if device_type == "cuda":
+        device = torch.device("cuda", rank)
+        torch.cuda.set_device(device)
+    else:
+        device = torch.device("cpu")
+        torch.set_num_threads(max((os.cpu_count() or 1) // n, 1))
+    model = build_model(cfg, device=device, seed=0)
+    rng = np.random.default_rng(0)
+    x = rng.uniform(0, 1, (n, cfg.num_frames, cfg.input_height,
+                           cfg.input_width, 3)).astype(np.float32)
+    per = x.shape[0] // n
+    rows = np.arange(rank * per, (rank + 1) * per)
+    local = torch.from_numpy(x[rows]).to(device)
+    # the batch is really split: each rank holds exactly B/N rows
+    if local.shape[0] != x.shape[0] // n:
+        raise AssertionError(f"rank {rank} holds {local.shape[0]} rows of "
+                             f"a global batch of {x.shape[0]} over {n}")
+    with torch.inference_mode():
+        model(local)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        multihost.barrier()
+        t0 = time.perf_counter()
+        for _ in range(K):
+            model(local)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = (time.perf_counter() - t0) / K
+        multihost.barrier()
+    return multihost.all_gather_objects((dt, rows.tolist()))
+
+
+def cmd_meshscale(args) -> int:
+    """Data-parallel scaling: N ranks, each with B/N = 1 snippet of a
+    global batch of N, N in {1, 4, 8}; returns 0 (a rank that breaks the
+    B/N check raises)."""
+    from snipper_tpu_torch.config import Config
+    from snipper_tpu_torch.models.snipper import resolve_device
+    from snipper_tpu_torch.parallel import multihost
+
+    device = resolve_device(args.device)
+    cfg = getattr(Config, args.preset)()
+    if args.size:
+        h, w = (int(v) for v in args.size.split("x"))
+        cfg = cfg.replace(input_height=h, input_width=w)
+    visible = torch.cuda.device_count() if device.type == "cuda" else None
+    n_dev = args.devices or visible or 1
+    if visible is not None and n_dev > visible:
+        raise ValueError(f"--devices {n_dev}: {visible} cards visible")
+    print(f"meshscale probe on {device.type}: {args.preset} "
+          f"{cfg.input_height}x{cfg.input_width}, f32 forward, {n_dev} "
+          f"devices", flush=True)
+    t1 = None
+    for n in (1, 4, 8):
+        if n > n_dev:
+            print(f"n={n}: skipped ({n_dev} devices)", flush=True)
+            continue
+        work = (cfg, n, args.K, device.type)
+        per_rank = (_meshscale_rank(*work) if n == 1 else multihost.spawn(
+            _meshscale_rank, n, work,
+            backend=multihost.default_backend(device))[0])
+        dt = max(t for t, _ in per_rank)
+        rows = sorted(r for _, rs in per_rank for r in rs)
+        if rows != list(range(n)):
+            raise AssertionError(f"n={n}: the ranks' rows {rows} do not "
+                                 f"split the global batch")
+        if n == 1:
+            t1 = dt
+        eff = t1 / (dt / n)
+        print(f"n={n}: {dt * 1e3:8.1f} ms / global batch {n}  "
+              f"({dt / n * 1e3:7.1f} ms/shard, overhead-eff {eff:.3f})",
+              flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         description=__doc__,
@@ -368,10 +466,21 @@ def main(argv=None) -> int:
     fa.add_argument("--device", default="cuda")
     fa.set_defaults(fn=cmd_fast, inference=False)
 
+    ms = sub.add_parser("meshscale")
+    ms.add_argument("--preset", default="light_t4")
+    ms.add_argument("--size", default=None,
+                    help="HxW input override (e.g. 96x128)")
+    ms.add_argument("--devices", type=int, default=None,
+                    help="devices to spread over (default: the visible "
+                         "cards; 1 on the CPU)")
+    ms.add_argument("-K", type=int, default=4)
+    ms.add_argument("--device", default="cuda")
+    ms.set_defaults(fn=cmd_meshscale)
+
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] in NOT_PORTED:
         p.error(f"subcommand {argv[0]!r} is not yet ported to "
-                f"snipper_tpu_torch (ROADMAP A4, A8); the JAX probe "
+                f"snipper_tpu_torch (ROADMAP A4); the JAX probe "
                 f"scripts/probe.py runs it")
     args = p.parse_args(argv)
     # serve and fast build models (and an export) outside inference mode

@@ -7,7 +7,10 @@ epoch, ``{ckpt_dir}/checkpoint{epoch:04d}.pt``, holding the JAX CLI's keys
 ``torch.save`` in the port's own format, as the JAX package writes its
 own; the original repository's ``.pth`` is read by
 ``convert.load_reference_checkpoint`` and not written. The newest ``keep``
-files are kept; ``latest_checkpoint`` backs ``--resume auto``.
+files are kept; ``latest_checkpoint`` backs ``--resume auto``. Over
+several ranks, rank 0 writes and prunes (JAX ``train/checkpoint.py:37``)
+while the others wait at a barrier; the state it writes is full (a
+tensor-parallel run gathers it first, ``parallel.mesh.gather_state_dict``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Dict, Optional
 import torch
 
 from snipper_tpu_torch.convert import reference_key_map
+from snipper_tpu_torch.parallel.multihost import barrier, is_main_process
 
 _NAME = re.compile(r"checkpoint\d{4}\.pt")
 
@@ -27,16 +31,20 @@ def save_checkpoint(ckpt_dir: str, state: Dict, epoch: int,
                     keep: int = 100) -> str:
     """Write ``state`` (``{"params", "opt_state", "step"}``) for ``epoch``
     (to a temporary name, then renamed, so a reader never sees half a
-    file); delete all but the newest ``keep``."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    file); delete all but the newest ``keep``. Every rank calls this and
+    gets the path once the file is there."""
     path = os.path.join(os.path.abspath(ckpt_dir),
                         f"checkpoint{epoch:04d}.pt")
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(state, tmp)
-    os.replace(tmp, path)
-    existing = sorted(d for d in os.listdir(ckpt_dir) if _NAME.fullmatch(d))
-    for stale in existing[:-keep] if keep > 0 else []:
-        os.remove(os.path.join(ckpt_dir, stale))
+    if is_main_process():
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(state, tmp)
+        os.replace(tmp, path)
+        existing = sorted(d for d in os.listdir(ckpt_dir)
+                          if _NAME.fullmatch(d))
+        for stale in existing[:-keep] if keep > 0 else []:
+            os.remove(os.path.join(ckpt_dir, stale))
+    barrier()
     return path
 
 

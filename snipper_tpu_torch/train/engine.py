@@ -8,6 +8,12 @@ batch, the PostProcess and the 3D metrics over the current and the future
 frames (reference ``engine.py:99-212``): MPJPE root/joint, pelvis-aligned
 MPJPE and 3DPCK_rel @ 0.15 m, and PCKh on PoseTrack-style samples; on
 request it collects the results and renders the first batches.
+
+Over a mesh (``parallel/mesh.py``) every rank runs these loops on its own
+batch shard; only rank 0 prints, the meters' averages are summed over the
+data group at the end, and ``evaluate`` merges the ranks' results and
+per-sample metric arrays with one gather each (JAX
+``train/engine.py:262-277``), in data-rank order.
 """
 
 from __future__ import annotations
@@ -24,6 +30,9 @@ from snipper_tpu_torch.config import Config
 from snipper_tpu_torch.data.loader import device_prefetch
 from snipper_tpu_torch.eval.metrics import eval_kpts2d_pckh, eval_pose3d
 from snipper_tpu_torch.infer.postprocess import postprocess
+from snipper_tpu_torch.parallel.multihost import (all_gather_objects,
+                                                  is_main_process,
+                                                  merge_eval_results, print0)
 from snipper_tpu_torch.train.step import batch_to_device, eval_step, \
     train_step
 from snipper_tpu_torch.utils.logger import MetricLogger
@@ -76,7 +85,9 @@ def train_one_epoch(state, criterion, loader, epoch: int,
                     grad_accum_steps: int = 1,
                     profile_dir: Optional[str] = None,
                     profile_steps: int = 3):
-    """``max_steps``: stop the epoch after N steps. Batches reach the card
+    """``max_steps``: stop the epoch after N steps. ``stop_flag`` is polled
+    before each step; over several ranks it must return the same on all
+    (``PreemptionGuard.poll``). Batches reach the card
     through ``device_prefetch`` (JAX ``train/engine.py:117-126``): the next
     batch's copy is issued, on a side stream on a card, before the current
     step runs. Returns ``(stats, history)``: the epoch's mean of each
@@ -126,12 +137,12 @@ def train_one_epoch(state, criterion, loader, epoch: int,
         iterable, lambda b: batch_to_device(b, device), stream=stream)
     t_data = time.perf_counter()
     for i, batch in enumerate(logger.log_every(iterable, print_freq,
-                                               f"Epoch: [{epoch}]")):
+                                               f"Epoch: [{epoch}]",
+                                               quiet=not is_main_process())):
         if max_steps is not None and i >= max_steps:
             break
         if stop_flag is not None and stop_flag():
-            print("preemption signal received — stopping epoch early",
-                  flush=True)
+            print0("preemption signal received — stopping epoch early")
             break
         if profile_dir is not None and i == profile_start and not profiling:
             from snipper_tpu_torch.utils.profiling import trace
@@ -149,6 +160,9 @@ def train_one_epoch(state, criterion, loader, epoch: int,
             profiled += 1   # the read of the scalars ended this step
             if profiled >= profile_steps:
                 finish_profile()
+        # the step averages its metrics over the data group, and the ranks
+        # of a model group compute the same loss: every rank stops here, or
+        # none does
         loss = metrics["loss_total"]
         if not np.isfinite(loss):
             finish_profile()  # keep the trace of the steps that blew up
@@ -158,7 +172,9 @@ def train_one_epoch(state, criterion, loader, epoch: int,
         logger.update(**metrics)
         logger.update(lr=state.lr_fns[-1](state.updates))
     finish_profile()  # the epoch ended before the window filled
-    print("Averaged stats:", logger, flush=True)
+    logger.synchronize_between_processes(
+        None if state.mesh is None else state.mesh.data_group)
+    print0("Averaged stats:", logger)
     return {k: m.global_avg for k, m in logger.meters.items()}, history
 
 
@@ -176,10 +192,11 @@ def _print_trace_summary(profile_dir: str, n_iters: int):
 def evaluate(model, criterion, loader, cfg: Config, device: torch.device,
              print_freq: int = 10, collect_results: bool = False,
              save_vis_dir: Optional[str] = None,
-             save_vis_batches: int = 2) -> Dict:
+             save_vis_batches: int = 2, mesh=None) -> Dict:
     """Losses and 3D/2D pose metrics over ``loader``; ``_batches`` counts
     the batches and ``_batch_seconds`` holds each batch's host time (it
-    ends with the outputs read to the host).
+    ends with the outputs read to the host), both this rank's. ``mesh``:
+    the stats and results are those of every data rank's shard.
 
     ``collect_results``: the PostProcess results of every sample are
     returned under ``_results``. ``save_vis_dir``: the first
@@ -191,8 +208,9 @@ def evaluate(model, criterion, loader, cfg: Config, device: torch.device,
     pose3d_future = {k: [] for k in POSE3D_KEYS}
     pckh = {k: [] for k in PCKH_KEYS}
     all_results, batch_seconds = [], []
+    quiet = not is_main_process()
     for batch_idx, batch in enumerate(logger.log_every(loader, print_freq,
-                                                       "Eval:")):
+                                                       "Eval:", quiet)):
         t0 = time.perf_counter()
         outputs, losses, src_idx = eval_step(
             model, criterion, batch_to_device(batch, device))
@@ -228,6 +246,20 @@ def evaluate(model, criterion, loader, cfg: Config, device: torch.device,
                     (fut < 0.15).astype(np.float32) if key == "3dpck"
                     else fut)
 
+    group = None if mesh is None else mesh.data_group
+    if group is not None:
+        # each data rank held a disjoint shard: a true union (replaces
+        # the reference's pickle-file rendezvous, main.py:291-322)
+        if collect_results:
+            all_results = merge_eval_results(all_results, group)
+        for acc in (pose3d, pose3d_future, pckh):
+            local = {k: (np.concatenate(v) if v else np.zeros((0,)))
+                     for k, v in acc.items()}
+            gathered = all_gather_objects(local, group)  # one per acc
+            for k in acc:
+                acc[k] = [chunk[k] for chunk in gathered]
+        logger.synchronize_between_processes(group)
+
     stats = {k: m.global_avg for k, m in logger.meters.items()}
     for name, acc in (("", pose3d), ("future_", pose3d_future), ("", pckh)):
         for k, chunks in acc.items():
@@ -236,8 +268,8 @@ def evaluate(model, criterion, loader, cfg: Config, device: torch.device,
             v = np.concatenate(chunks)
             if v.size:
                 stats[f"{name}{k}"] = float(v.mean())
-    print("Eval stats:", {k: round(v, 4) for k, v in stats.items()
-                          if not k.startswith("loss")}, flush=True)
+    print0("Eval stats:", {k: round(v, 4) for k, v in stats.items()
+                           if not k.startswith("loss")})
     stats["_batches"] = len(batch_seconds)
     stats["_batch_seconds"] = batch_seconds
     if collect_results:

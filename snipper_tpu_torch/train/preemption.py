@@ -4,11 +4,15 @@
 The reference has no failure handling: training aborts on non-finite loss
 and recovery is a manual ``--resume`` (reference ``engine.py:68-71``,
 ``main.py:242-248``). Here SIGTERM/SIGINT end the epoch early, its
-checkpoint is written, and ``--resume auto`` picks it up."""
+checkpoint is written, and ``--resume auto`` picks it up. Over several
+ranks the flag is agreed at step boundaries (``poll``): a rank that
+stopped alone would leave the others waiting in a collective."""
 
 from __future__ import annotations
 
 import signal
+
+from snipper_tpu_torch.parallel.multihost import any_process
 
 
 class PreemptionGuard:
@@ -47,6 +51,13 @@ class PreemptionGuard:
                 raise KeyboardInterrupt
             self._sigint_seen = True
         self.should_stop = True
+
+    def poll(self, group=None) -> bool:
+        """``should_stop`` agreed over the ranks of ``group`` (an
+        all-reduce of the maximum; every rank calls this at the same
+        step): true on all when a signal reached any."""
+        self.should_stop = any_process(self.should_stop, group)
+        return self.should_stop
 
     def restore(self):
         for sig, prev in self._prev.items():

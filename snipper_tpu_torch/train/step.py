@@ -15,6 +15,16 @@ Dropout draws from the global generators inside ``torch.random.fork_rng``,
 seeded per step from the caller's ``torch.Generator`` (seeded from
 ``cfg.seed`` by the CLI), so a run is reproducible and leaves the global
 generators as it found them. Its bits are not JAX's.
+
+Over a mesh (``state.mesh``, ``parallel/mesh.py``) each rank runs its own
+batch shard. The gradients are averaged over the data group by one
+all-reduce of their flattened concatenation, once per optimizer update
+(after the accumulation window, before the clip, so that the clip sees
+the global norm as JAX's does); under tensor parallelism the norm sums
+the cut parameters' squares over the model group. The dropout seed folds
+in the data rank (equal on the ranks of a model group, which must draw
+alike), and the step's metrics are averaged over the data group, so that
+``loss_total`` is the global batch's loss on every rank.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+import torch.distributed as dist
 
 from snipper_tpu_torch.data.device_preprocess import warp_train_batch_device
 from snipper_tpu_torch.losses.criterion import SetCriterion
@@ -73,10 +84,50 @@ def forward_loss(model, criterion: SetCriterion, batch: Dict,
     return total, losses, out, src_idx
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """``optax.global_norm``: sqrt of the sum of squares of all
-    elements."""
-    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+def global_norm(tensors, params=None, mesh=None) -> torch.Tensor:
+    """``optax.global_norm``: sqrt of the sum of squares of all elements.
+    With a model group, ``tensors`` are the gradients of ``params``, and
+    those of the cut parameters (``tp_spec``) are this rank's pieces: their
+    squares are summed over the group."""
+    if mesh is None or mesh.model_group is None:
+        return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+    sq = [torch.sum(t.float() ** 2) for t in tensors]
+    cut = [getattr(p, "tp_spec", None) is not None for p in params]
+    pieces = sum(s for s, c in zip(sq, cut) if c)
+    dist.all_reduce(pieces, group=mesh.model_group)
+    return torch.sqrt(sum(s for s, c in zip(sq, cut) if not c) + pieces)
+
+
+def average_gradients(grads, mesh=None):
+    """``grads`` averaged over the data group: one all-reduce of their
+    flattened concatenation, divided by the group's size."""
+    if mesh is None or mesh.data_group is None:
+        return grads
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=mesh.data_group)
+    flat /= mesh.dp
+    return [f.view_as(g) for f, g in
+            zip(flat.split([g.numel() for g in grads]), grads)]
+
+
+def average_metrics(metrics: Dict[str, torch.Tensor], mesh=None
+                    ) -> Dict[str, torch.Tensor]:
+    """0-d metrics averaged over the data group (one all-reduce)."""
+    if mesh is None or mesh.data_group is None:
+        return metrics
+    keys = list(metrics)
+    vals = torch.stack([metrics[k].float() for k in keys])
+    dist.all_reduce(vals, group=mesh.data_group)
+    return dict(zip(keys, (vals / mesh.dp).unbind()))
+
+
+def dropout_seed(generator: torch.Generator, mesh=None) -> int:
+    """This step's dropout seed: drawn from ``generator`` (the same on
+    every rank) and, on a data rank > 0, folded with that rank."""
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+    if mesh is not None and mesh.data_rank:
+        seed = (seed + mesh.data_rank * 0x9E3779B97F4A7C15) % 2 ** 62
+    return seed
 
 
 def train_step(state: TrainState, criterion: SetCriterion, batch: Dict,
@@ -84,23 +135,28 @@ def train_step(state: TrainState, criterion: SetCriterion, batch: Dict,
                mixed_precision: bool = True) -> Dict[str, torch.Tensor]:
     """One microbatch. Returns the step's metrics as 0-d tensors on the
     device (``loss_total``, ``grad_norm`` of this microbatch's own
-    gradients, every loss term, ``sampling_overflow``); read them with one
-    host copy."""
-    model, cfg = state.model, state.cfg
+    gradients, every loss term, ``sampling_overflow``), averaged over the
+    data group; read them with one host copy. With accumulation over a
+    data group, a microbatch's ``grad_norm`` is the mean of the ranks'
+    own norms (the average is taken at the window's end)."""
+    model, cfg, mesh = state.model, state.cfg, state.mesh
     model.train()
-    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+    seed = dropout_seed(generator, mesh)
     dev = batch["targets"]["valid"].device
     with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
         torch.manual_seed(seed)
         total, losses, out, _ = forward_loss(model, criterion, batch,
                                              mixed_precision)
     grads = torch.autograd.grad(total, state.params)
-    norm = global_norm(grads)
-    metrics = {"loss_total": total.detach(), "grad_norm": norm,
-               **{k: v.detach() for k, v in losses.items()},
-               "sampling_overflow": torch.zeros((), device=dev)}
-
     k = max(cfg.grad_accum_steps, 1)
+    if k == 1:
+        grads = average_gradients(grads, mesh)
+    norm = global_norm(grads, state.params, mesh)
+    metrics = average_metrics(
+        {"loss_total": total.detach(), "grad_norm": norm,
+         **{name: v.detach() for name, v in losses.items()},
+         "sampling_overflow": torch.zeros((), device=dev)}, mesh)
+
     micro = state.step % k
     state.step += 1
     if k > 1:
@@ -111,8 +167,9 @@ def train_step(state: TrainState, criterion: SetCriterion, batch: Dict,
                 a.add_((g - a) / (micro + 1))
         if micro < k - 1:
             return metrics
-        grads, state.accum = state.accum, None
-        norm = global_norm(grads)
+        grads = average_gradients(state.accum, mesh)
+        state.accum = None
+        norm = global_norm(grads, state.params, mesh)
     apply_update(state, grads, norm)
     return metrics
 

@@ -68,6 +68,27 @@ class MetricLogger:
         for k, v in kwargs.items():
             self.meters[k].update(float(v))
 
+    def synchronize_between_processes(self, group=None):
+        """Sum each meter's count and total over the ranks of ``group``
+        (reference ``util/misc.py:74-86``), so that ``global_avg`` is the
+        average over every rank's updates; the windows stay local. Every
+        rank must hold the same meters."""
+        import torch
+        import torch.distributed as dist
+
+        from snipper_tpu_torch.parallel.multihost import (collective_device,
+                                                          process_count)
+
+        if process_count(group) == 1:
+            return
+        keys = sorted(self.meters)
+        t = torch.tensor([[self.meters[k].count, self.meters[k].total]
+                          for k in keys], dtype=torch.float64,
+                         device=collective_device(group))
+        dist.all_reduce(t, group=group)
+        for k, (count, total) in zip(keys, t.tolist()):
+            self.meters[k].count, self.meters[k].total = int(count), total
+
     def __getattr__(self, attr):
         if attr in self.meters:
             return self.meters[attr]
@@ -77,7 +98,10 @@ class MetricLogger:
         return self.delimiter.join(f"{k}: {m}" for k, m in self.meters.items())
 
     def log_every(self, iterable: Iterable, print_freq: int,
-                  header: str = ""):
+                  header: str = "", quiet: bool = False):
+        """Yield from ``iterable``, printing a progress line every
+        ``print_freq`` items and the total time at the end, unless
+        ``quiet``."""
         i = 0
         start = time.time()
         iter_time = SmoothedValue(fmt="{avg:.4f}")
@@ -91,7 +115,7 @@ class MetricLogger:
             data_time.update(time.time() - end)
             yield obj
             iter_time.update(time.time() - end)
-            if i % print_freq == 0:
+            if i % print_freq == 0 and not quiet:
                 mem = _device_mem_mb()
                 mem_s = f" max mem: {mem:.0f}MB" if mem is not None else ""
                 if total:
@@ -106,6 +130,8 @@ class MetricLogger:
             i += 1
             end = time.time()
         elapsed = time.time() - start
+        if quiet:
+            return
         print(f"{header} Total time: "
               f"{datetime.timedelta(seconds=int(elapsed))} "
               f"({elapsed / max(i, 1):.4f} s / it)", flush=True)

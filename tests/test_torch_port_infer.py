@@ -160,11 +160,27 @@ def test_cli_without_cuda_raises(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--data_parallel"])
-def test_cli_refuses_flags_not_ported(tmp_path, capsys, flag):
+def test_cli_refuses_flags_not_ported(tmp_path, capsys, flag, monkeypatch):
+    """``--data_parallel``, once refused as not ported, is taken: outside
+    ``torchrun`` it is the plain path (one process, the same tracks).
+    Under ``torchrun``'s environment the CLI refuses to run without it,
+    since every rank would serve and write every snippet."""
+    data_dir = _frames_dir(tmp_path)
+    tracks, served = {}, {}
+    for extra in ([], [flag]):
+        out = tmp_path / f"out{len(extra)}"
+        served[len(extra)] = port_cli.main(
+            ["--preset", "tiny", "--data_dir", data_dir, "--seq_gap", "1",
+             "--output_dir", str(out), "--device", "cpu"] + extra)["snippets"]
+        with open(out / "tracks.pkl", "rb") as f:
+            tracks[len(extra)] = pickle.load(f)
+    assert served[0] == served[1] == 7
+    _assert_tracks_equal(tracks[0], tracks[1])
+    monkeypatch.setenv("RANK", "0")
     with pytest.raises(SystemExit):
-        port_cli.main(["--preset", "tiny", "--data_dir", str(tmp_path),
-                       "--device", "cpu", flag])
-    assert "not yet ported" in capsys.readouterr().err
+        port_cli.main(["--preset", "tiny", "--data_dir", data_dir,
+                       "--device", "cpu"])
+    assert "pass --data_parallel" in capsys.readouterr().err
 
 
 def test_cli_tracks_match_jax_cli(tmp_path, monkeypatch):
