@@ -36,6 +36,13 @@ result):
    card saved and loaded in a subprocess that imports only torch and the
    MSDA operators (12 launches per call, the live model's outputs within
    1e-5), and the ``probe serve`` lines.
+   Then the host ops (``data/native_ops.py``, built by the host C++
+   compiler in phase 2; its command and build seconds printed, the op
+   required): ``warp_patch`` against the port's numpy path at 1920x1080
+   and 1280x720 sources to 600x800 (rotation, flip, colour, a border off
+   the frame), one frame timed native against numpy and four frames on four
+   threads against one (host clock); ``lsa_pairs`` against scipy's optimal
+   cost on eval-sized costs (60 queries, up to 20 targets).
 5. Drive the training path: ``snipper_tpu_torch.cli.train`` on
    canonical_t4_f2 (full width and depth), batch 2, bf16 mixed precision,
    a few steps over the synthetic dataset, then its checkpoint and its
@@ -54,13 +61,19 @@ result):
    one eval (counts at 0 just before, read just after: launches per step
    and per eval batch, finite losses, the checkpoint, the busy share of
    one profiled step from raw frames), the same with the host warp (step
-   time, the loader's host decode and warp), and ``cli.eval`` with the
+   time, the loader's host decode and warp; the host op's C++ warp, then a
+   short leg with the op's numpy path for the numpy period in the same
+   run), and ``cli.eval`` with the
    PoseTrack harness on the checkpoint (launches per batch, finite stats
    with the ``posetrack_ap_*`` keys, ms per batch). Then ``cli.train
    --profile_dir`` for 4 steps (counts at 0 just before, read just after;
    the trace's summary names both MSDA kernels with device time, and the
    matching's host span), and ``cli.dump_labels`` on the PoseTrack18-format
    val split (one pickle entry per sample, the ``--vis 2`` renders).
+   Then the parity runbook (``scripts/parity_runbook.py``) on a
+   reference-format canonical_t4 checkpoint of seeded weights: its
+   ``torch_outputs.npz`` against the live forward (1e-5), and its
+   ``cli.eval`` leg on the PoseTrack18-format set (finite stats).
    Then the multi-GPU paths on this one card (right, not scaling): an f32
    canonical_t4_f2 step (dropout 0, TF32 off) on two gloo ranks of
    cuda:0, data-parallel (batch 1 a rank) and tensor-parallel (4 heads a
@@ -90,6 +103,12 @@ result):
    impls) and ``probe lanegather`` through ``main``, counts set to 0 just
    before each and read just after; check the exit code, that no line
    says FAIL, and the ``windowed2d_pallas`` line's overflow and error.
+   Then ``probe forward`` (canonical_t4 and light_t1, batch 1 and 4, f32;
+   one ``msda_forward`` launch per decoder and encoder layer and forward
+   call), ``probe train -K 2`` (canonical_t4_f2, batch 2, mixed precision;
+   12 forward and 12 backward launches per step) and ``probe split -K 3``
+   (``deform_impl="skip"``: no launch), each with the counts at 0 just
+   before and read just after, exit 0 and no FAIL line.
 9. Print one JSON line of kernel numbers, then the card's name and power
    limit, then, as the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -151,6 +170,12 @@ TOL_PROBE_RELERR = 8e-3
 # JAX probe's bar).
 TOL_CONTRACT_REL = 1e-5
 PROBE_OP_IMPLS = "windowed,windowed2d,windowed2d_pallas,pmerged,pallas,core"
+# the host ops: C++ against the port's numpy warp (f32 arithmetic in another
+# order) and against scipy's optimal assignment cost
+TOL_NATIVE_WARP = 1e-5
+TOL_LSA_COST = 1e-9
+# the runbook's goldens against the live forward (the same f32 forward)
+TOL_RUNBOOK = 1e-5
 
 
 def check(cond, msg):
@@ -927,10 +952,70 @@ def phase_probes():
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the probe path was not launched: {launches}")
     log(f"probe path: exit codes {rc}, {rc2}; launches {launches}")
+    model_res = probe_model_runs()
     return dict(launches=launches, op_ms=op_ms, relerr=relerr,
                 op_lines=list(lines.values()),
                 lanegather_lines=[ln for ln in out2.splitlines()
-                                  if ln.startswith("  ")])
+                                  if ln.startswith("  ")], **model_res)
+
+
+def probe_model_runs(K=8, train_K=2, split_K=3):
+    """``probe forward``, ``probe train`` and ``probe split`` through
+    ``main``, each with the MSDA counts at 0 just before and read just
+    after: one ``msda_forward`` launch per layer and forward call (the
+    forward: the overflow read, the warm-up and 2 x K timed calls per
+    point), 12 forward and 12 backward launches per train step (the first
+    step and K), none under ``deform_impl="skip"``."""
+    from snipper_tpu_torch.config import Config
+    from snipper_tpu_torch.ops.msda import ms_deform_attn
+
+    def run(argv):
+        log(f"probe {' '.join(argv)}:")
+        ms_deform_attn.launches = 0
+        ms_deform_attn.backward_launches = 0
+        rc, out = _run_probe(argv)
+        counts = (ms_deform_attn.launches, ms_deform_attn.backward_launches)
+        # ------------------------------------------------------------------
+        check(rc == 0 and "FAIL" not in out
+              and out.rstrip().endswith("DONE"),
+              f"probe {argv[0]} exited {rc} or printed FAIL")
+        return out, counts
+
+    presets, batches = ("canonical_t4", "light_t1"), (1, 4)
+    out, (fwd, _) = run(["forward", "--presets", ",".join(presets),
+                         "--batch", ",".join(map(str, batches)), "--dtype",
+                         "f32", "-K", str(K), "--device", "cuda"])
+    layers = {p: getattr(Config, p)().enc_layers
+              + getattr(Config, p)().dec_layers for p in presets}
+    calls = len(batches) * (2 + 2 * K)
+    want = sum(n * calls for n in layers.values())
+    check(fwd == want, f"probe forward: {fwd} msda_forward launches, "
+          f"expected {want} ({layers} per call, {calls} calls per preset)")
+    forward_lines = [ln for ln in out.splitlines() if "ms/snippet" in ln]
+    check(len(forward_lines) == len(presets) * len(batches)
+          and all("impl=kernel" in ln and "overflow=0.0" in ln
+                  for ln in forward_lines), f"probe forward: {out}")
+
+    out, (tf, tb) = run(["train", "-K", str(train_K), "--device", "cuda"])
+    per = Config.canonical_t4_f2().enc_layers \
+        + Config.canonical_t4_f2().dec_layers
+    steps = 1 + train_K
+    check((tf, tb) == (per * steps, per * steps),
+          f"probe train: {tf} + {tb} launches in {steps} steps, expected "
+          f"{per} + {per} per step")
+    train_line = [ln for ln in out.splitlines() if ln.startswith("train ")]
+
+    out, (sf, sb) = run(["split", "-K", str(split_K), "--device", "cuda"])
+    check((sf, sb) == (0, 0), f"probe split: {sf} + {sb} MSDA launches "
+          f"under deform_impl='skip', expected none")
+    split_lines = [ln for ln in out.splitlines()
+                   if ln.startswith(("enc=", "solved:"))]
+    log(f"probe forward/train/split: msda_forward {fwd} launches over "
+        f"{len(forward_lines)} points ({layers} per forward call), train "
+        f"{tf} + {tb} over {steps} steps, split {sf}")
+    return dict(forward_launches=fwd, forward_lines=forward_lines,
+                train_launches=[tf, tb], train_lines=train_line,
+                split_launches=sf, split_lines=split_lines)
 
 
 
@@ -1626,6 +1711,116 @@ def phase_profile_labels(work, card, real_root, steps=4):
         summary=summary, dump_entries=len(gt), renders=len(renders))
 
 
+def numpy_host_ops():
+    """The host ops' numpy and scipy paths for a block: a test-only seam
+    (``data/native_ops.py``'s library handle set to "none"), never an
+    environment switch. Host-bound numbers compare only within one call,
+    so each numpy leg runs beside its native leg."""
+    from unittest import mock
+
+    from snipper_tpu_torch.data import native_ops
+
+    return mock.patch.object(native_ops, "_lib", False)
+
+
+def phase_native_ops(card, out_hw=(600, 800)):
+    """The host ops built in phase 2 (``data/csrc/imageops.cpp``):
+    ``warp_patch`` against the port's numpy path at 1920x1080 and 1280x720
+    sources to 600x800 in four cases (rotation, flip, colour, a crop
+    centred near the frame's corner so the border falls off it); one
+    1920x1080 frame timed native against numpy, four frames on four
+    threads against one (host clock, median); ``lsa_pairs`` against
+    scipy's optimal cost on costs of 60 queries and 1-20 targets, both
+    orientations, and one 60x20 assignment timed against scipy's."""
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+
+    from snipper_tpu_torch.data import native_ops
+    from snipper_tpu_torch.data.transforms import gen_trans_from_patch
+
+    check(native_ops.have_native(), "the host ops are not native")
+    info = native_ops.build_info
+    log(f"host ops: `{info['command']}` built {os.path.basename(info['path'])}"
+        f" in {info['seconds']:.2f} s")
+    out_h, out_w = out_hw
+    rng = np.random.default_rng(0)
+    cases = (("rotation", 17.0, False, (1.0, 1.0, 1.0), 0.5),
+             ("flip", 0.0, True, (1.0, 1.0, 1.0), 0.5),
+             ("colour", -8.0, False, (1.3, 0.7, 1.1), 0.5),
+             ("border", 25.0, True, (0.9, 1.1, 1.0), 0.04))
+    errs, jobs = {}, {}
+    for w, h in ((1920, 1080), (1280, 720)):
+        small = rng.integers(0, 256, (27, 48, 3), np.uint8)
+        img = np.kron(small, np.ones((h // 27 + 1, w // 48 + 1, 1),
+                                     np.uint8))[:h, :w].copy()
+        img = (img + rng.integers(0, 16, img.shape)).astype(np.uint8)
+        for name, rot, flip, color, centre in cases:
+            s = max(w / out_w, h / out_h) * 0.9
+            trans = gen_trans_from_patch(w * centre, h * centre, out_w * s,
+                                         out_h * s, out_w, out_h, rot)
+            args = (img, trans, (out_h, out_w), flip, color)
+            jobs[f"{w}x{h} {name}"] = args
+            got = native_ops.warp_patch(*args)
+            with numpy_host_ops():
+                want = native_ops.warp_patch(*args)
+            check(got.shape == want.shape and np.isfinite(got).all(),
+                  f"warp_patch {w}x{h} {name}: shape {got.shape}")
+            errs[f"{w}x{h} {name}"] = float(np.abs(got - want).max())
+    check(max(errs.values()) <= TOL_NATIVE_WARP,
+          f"native warp_patch vs numpy: {errs}")
+    border = jobs["1920x1080 border"]
+    zero_share = float((native_ops.warp_patch(*border) == 0).mean())
+    check(zero_share > 0.2, f"border case reads the frame: {zero_share}")
+
+    def warp(args):
+        return native_ops.warp_patch(*args)
+
+    frame = jobs["1920x1080 rotation"]
+    native_ms = host_ms(lambda: warp(frame), reps=9)
+    with numpy_host_ops():
+        numpy_ms = host_ms(lambda: warp(frame), reps=3)
+    four = [jobs[f"1920x1080 {c[0]}"] for c in cases]
+    one_thread_ms = host_ms(lambda: [warp(a) for a in four], reps=5)
+    with ThreadPoolExecutor(4) as pool:
+        four_threads_ms = host_ms(lambda: list(pool.map(warp, four)),
+                                  reps=5)
+    log(f"host warp_patch ({card}, host clock, median): C++ vs the numpy "
+        f"path max|diff| {max(errs.values()):.3e} (tol "
+        f"{TOL_NATIVE_WARP:g}) over {len(errs)} cases "
+        f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} }; border case "
+        f"{zero_share:.3f} zeros; one 1920x1080 -> {out_h}x{out_w} frame "
+        f"{native_ms:.2f} ms C++, {numpy_ms:.2f} ms numpy "
+        f"({numpy_ms / native_ms:.1f}x); four frames on one thread "
+        f"{one_thread_ms:.2f} ms, on four threads {four_threads_ms:.2f} ms "
+        f"({one_thread_ms / four_threads_ms:.2f}x)")
+
+    lsa_err, n_cases = 0.0, 0
+    for n in (1, 3, 8, 15, 20):
+        for tall in (True, False):
+            cost = rng.uniform(0, 1, (60, n))
+            cost = cost if tall else np.ascontiguousarray(cost.T)
+            rows, cols = native_ops.lsa_pairs(cost)
+            r, c = linear_sum_assignment(cost)
+            check(len(set(rows.tolist())) == len(set(cols.tolist()))
+                  == min(cost.shape), f"lsa_pairs {cost.shape}: not a "
+                  f"matching")
+            lsa_err = max(lsa_err, abs(cost[rows, cols].sum()
+                                       - cost[r, c].sum()))
+            n_cases += 1
+    check(lsa_err <= TOL_LSA_COST, f"lsa_pairs cost vs scipy: {lsa_err}")
+    cost = rng.uniform(0, 1, (60, 20))
+    lsa_ms = host_ms(lambda: native_ops.lsa_pairs(cost), reps=21)
+    scipy_ms = host_ms(lambda: linear_sum_assignment(cost), reps=21)
+    log(f"host lsa_pairs ({card}): optimal cost within {lsa_err:.3e} of "
+        f"scipy's (tol {TOL_LSA_COST:g}) over {n_cases} costs of 60 x 1-20;"
+        f" 60x20 {lsa_ms:.4f} ms C++, {scipy_ms:.4f} ms scipy (host clock,"
+        f" median)")
+    return dict(build=dict(info), warp_errs=errs, zero_share=zero_share,
+                native_ms=native_ms, numpy_ms=numpy_ms,
+                one_thread_ms=one_thread_ms, four_threads_ms=four_threads_ms,
+                lsa_err=lsa_err, lsa_ms=lsa_ms, scipy_ms=scipy_ms)
+
+
 def phase_train(work, steps=8):
     """The training path through the CLI a user calls: canonical_t4_f2,
     batch 2, bf16 mixed precision, ``steps`` steps over two distinct
@@ -1959,18 +2154,36 @@ def phase_train_real(work, card, steps=8, host_steps=3):
     host_step_ms = statistics.median(h["seconds"] for h in hh[1:]) * 1e3
     host_period_ms = statistics.median(h["seconds"] + h["data_seconds"]
                                        for h in hh[1:]) * 1e3
+    # the same leg with the host op's numpy path, for the period beside
+    with numpy_host_ops():
+        res_np = train_cli.main([
+            "--preset", "canonical_t4_f2", "--batch_size", "2",
+            "--posetrack_dir", root, "--epochs", "1", "--eval_every", "5",
+            "--steps_per_epoch", str(host_steps), "--output_dir",
+            os.path.join(work, "train_real_numpy"), "--device", "cuda"])
+    hn = res_np["history"]
+    check(len(hn) == host_steps and all(
+        math.isfinite(h["loss_total"]) for h in hn), "numpy-warp run")
+    numpy_period_ms = statistics.median(h["seconds"] + h["data_seconds"]
+                                        for h in hn[1:]) * 1e3
     paths = [os.path.join(root, f) for i in pick
              for f in ds_host[i]["targets"]["filenames"][:cfg.num_frames]]
     decode_ms = host_ms(lambda: [_read_rgb(p) for p in paths], reps=3)
     raw_getter_ms = host_ms(lambda: [ds_dev[i] for i in pick], reps=3)
     host_getter_ms = host_ms(lambda: [ds_host[i] for i in pick], reps=3)
+    with numpy_host_ops():
+        numpy_getter_ms = host_ms(lambda: [ds_host[i] for i in pick],
+                                  reps=3)
     log(f"training with the host warp ({card}): step {host_step_ms:.2f} ms,"
         f" period {host_period_ms:.2f} ms, {2e3 / host_period_ms:.3f} "
-        f"samples/s (median, first step excluded; 2 decode threads); one "
+        f"samples/s (median, first step excluded; 2 decode threads; the C++"
+        f" warp); with the numpy warp period {numpy_period_ms:.2f} ms; one "
         f"batch of 2 on one host thread: decode of its {len(paths)} frames "
         f"{decode_ms:.2f} ms, samples without the warp {raw_getter_ms:.2f} "
-        f"ms, with the host warp {host_getter_ms:.2f} ms (warp "
-        f"{host_getter_ms - raw_getter_ms:.2f} ms; host clock, median)")
+        f"ms, with the C++ warp {host_getter_ms:.2f} ms (warp "
+        f"{host_getter_ms - raw_getter_ms:.2f} ms), with the numpy warp "
+        f"{numpy_getter_ms:.2f} ms (warp {numpy_getter_ms - raw_getter_ms:.2f}"
+        f" ms; host clock, median)")
 
     # ---- (d) eval on the files with the harness, counts at 0 ------------
     out_eval = os.path.join(work, "eval_real")
@@ -2010,9 +2223,80 @@ def phase_train_real(work, card, steps=8, host_steps=3):
                 samples_per_s=2e3 / period_ms, losses=losses,
                 busy_share=bd["busy_share"], profiled_step=bd,
                 host_step_ms=host_step_ms, host_period_ms=host_period_ms,
-                decode_ms=decode_ms, raw_getter_ms=raw_getter_ms,
-                host_getter_ms=host_getter_ms, eval_batches_real=n,
-                eval_ms=eval_ms, posetrack_ap_keys=ap_keys, root=root)
+                numpy_period_ms=numpy_period_ms, decode_ms=decode_ms,
+                raw_getter_ms=raw_getter_ms, host_getter_ms=host_getter_ms,
+                numpy_getter_ms=numpy_getter_ms, eval_batches_real=n,
+                eval_ms=eval_ms, posetrack_ap_keys=ap_keys, root=root,
+                gt_dir=gt_dir)
+
+
+def phase_parity_runbook(work, card, real):
+    """``scripts/parity_runbook.py`` on the card: a reference-format
+    canonical_t4 ``.pth`` of seeded weights (the port's state dict renamed
+    by ``convert.reference_key_map``), its goldens against the live forward
+    of the same weights (f32, TF32 off; ``msda_forward`` counts at 0 just
+    before and read just after: 12 launches), and its ``cli.eval`` leg on
+    ``phase_train_real``'s PoseTrack18-format set with the harness."""
+    import numpy as np
+    import torch
+
+    from snipper_tpu_torch.config import Config
+    from snipper_tpu_torch.convert import reference_key_map
+    from snipper_tpu_torch.ops.msda import ms_deform_attn
+    from snipper_tpu_torch.scripts import parity_runbook
+    from snipper_tpu_torch.scripts.probe import tf32_off
+
+    cfg = Config.canonical_t4()
+    model = perturbed_model(cfg, seed=3)
+    state = model.state_dict()
+    ckpt = os.path.join(work, "runbook_reference.pth")
+    torch.save({"model": {src: state[dst].cpu() for src, dst in
+                          reference_key_map(cfg).items()}}, ckpt)
+    out = os.path.join(work, "runbook")
+    t0 = time.perf_counter()
+    ms_deform_attn.launches = 0
+    report = parity_runbook.main([
+        "--checkpoint", ckpt, "--preset", "canonical_t4", "--output_dir",
+        out, "--posetrack_dir", real["root"], "--posetrack_gt_dir",
+        real["gt_dir"], "--device", "cuda"])
+    launches = ms_deform_attn.launches
+    # ----------------------------------------------------------------------
+    seconds = time.perf_counter() - t0
+    per_pass = cfg.enc_layers + cfg.dec_layers
+    check(launches == per_pass, f"runbook forward: {launches} msda_forward "
+          f"launches, expected {per_pass}")
+    x = torch.from_numpy(parity_runbook.probe_input(cfg)).cuda()
+    with tf32_off(), torch.inference_mode():
+        live = model(x)
+    want = {k: live[k].float().cpu().numpy()
+            for k in parity_runbook.OUTPUTS}
+    want.update({f"heatmap_{i}": h.float().cpu().numpy()
+                 for i, h in enumerate(live["heatmaps"])})
+    with np.load(os.path.join(out, "goldens", "torch_outputs.npz")) as got:
+        check(sorted(got.files) == sorted(want), f"goldens {got.files}")
+        diffs = parity_runbook.output_diffs(dict(got), want)
+    worst = max(d["max_abs"] for d in diffs.values())
+    check(worst <= TOL_RUNBOOK, f"runbook goldens vs the live forward: "
+          f"{diffs}")
+    stats = report.get("eval_posetrack", {})
+    bad = {k: v for k, v in stats.items()
+           if isinstance(v, float) and not math.isfinite(v)}
+    check("error" not in stats and stats and not bad,
+          f"runbook eval leg: {str(stats)[:2000]}")
+    with open(os.path.join(out, "report.json")) as f:
+        check(set(json.load(f)) >= {"checkpoint", "preset",
+                                    "activation_parity", "eval_posetrack"},
+              "report.json keys")
+    log(f"parity runbook ({card}): canonical_t4 reference-format checkpoint;"
+        f" {launches} msda_forward launches in its forward; goldens vs the "
+        f"live forward worst max|diff| {worst:.3e} (tol {TOL_RUNBOOK:g}) "
+        f"over {len(diffs)} outputs; cli.eval leg on the PoseTrack18-format "
+        f"set: {len(stats)} finite stats (posetrack_ap_ap "
+        f"{stats.get('posetrack_ap_ap')}); {seconds:.1f} s")
+    del model, live
+    torch.cuda.empty_cache()
+    return dict(launches=launches, worst=worst, eval_keys=len(stats),
+                seconds=seconds)
 
 
 def phase_harness(work, n_frames=4):
@@ -2630,10 +2914,15 @@ def main() -> int:
     # 2. build
     from snipper_tpu_torch.ops import _build
 
+    from snipper_tpu_torch.data import native_ops
+
     sources = ("msda_forward", "msda_backward", "win2d", "lane_chain")
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        host_ops = pool.submit(native_ops.have_native)
         built = list(pool.map(
             lambda s: _build.build(f"{s}.cu", f"lib{s}.so"), sources))
+        check(host_ops.result(), "the host ops did not build: no C++ "
+              "compiler found")
     ptxas = {}
     for src, b in zip(sources, built):
         log(f"built {b['path'].name} in {b['seconds']:.2f} s")
@@ -2664,6 +2953,8 @@ def main() -> int:
         serve_res = phase_serving_device(work, main_res, card)
         # 4a. serving profiles and the exported artifact
         fast_res = phase_fast_export(work, card, main_res)
+        # 4b. the host ops
+        native_res = phase_native_ops(card)
         # 5. the training path, then the eval CLI on its checkpoint
         train_res = phase_train(work)
         eval_res = phase_eval(work, train_res["checkpoint"])
@@ -2673,7 +2964,9 @@ def main() -> int:
         harness_res = phase_harness(work)
         # 5c. a profiled training run, the label dump
         prof_res = phase_profile_labels(work, card, real_res["root"])
-        # 5d. the multi-GPU paths on this card
+        # 5d. the parity runbook
+        runbook_res = phase_parity_runbook(work, card, real_res)
+        # 5e. the multi-GPU paths on this card
         mg_res = phase_multi_gpu(work, card)
     # 6. a train step, kernels against the plain MSDA
     agree_res = phase_train_agreement()
@@ -2719,6 +3012,10 @@ def main() -> int:
             mg_res["torchrun"]["train_launches"]["msda_forward"],
         "torchrun_infer_launches":
             mg_res["torchrun"]["infer_launches"]["msda_forward"],
+        "probe_forward_launches": probe_res["forward_launches"],
+        "probe_train_launches": probe_res["train_launches"][0],
+        "probe_split_launches": probe_res["split_launches"],
+        "runbook_launches": runbook_res["launches"],
         "shapes": shapes_res,
     }, {
         "name": "msda_backward",
@@ -2747,6 +3044,7 @@ def main() -> int:
             r["msda_backward"] for r in mg_res["tp2"]["launches"]],
         "torchrun_train_launches":
             mg_res["torchrun"]["train_launches"]["msda_backward"],
+        "probe_train_launches": probe_res["train_launches"][1],
         "shapes": bwd_res,
     }]
     k2 = win_res["win2d_sample"]
@@ -2824,7 +3122,11 @@ def main() -> int:
         f"kernels vs plain: "
         f"gradients within {agree_res['grad_worst_rel']:.3e} of scale; "
         f"probe op windowed2d_pallas {probe_res['op_ms']['windowed2d_pallas']}"
-        f" ms/op-call (relerr {probe_res['relerr']:.2e}); multi-GPU on "
+        f" ms/op-call (relerr {probe_res['relerr']:.2e}); host warp "
+        f"{native_res['native_ms']:.2f} ms a 1920x1080 frame in C++, "
+        f"{native_res['numpy_ms']:.2f} in numpy; host-warp training "
+        f"{real_res['numpy_period_ms']:.2f} ms/step with the numpy warp; "
+        f"runbook goldens within {runbook_res['worst']:.2e}; multi-GPU on "
         f"one card: dp2 step {mg_res['dp2']['step_ms']} ms with a "
         f"{mg_res['dp2']['allreduce_ms']} ms gradient all-reduce (gloo), "
         f"tp2 step {mg_res['tp2']['step_ms']} ms, two-rank serving "

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 
 from snipper_tpu_torch.config import PRESETS, Config
 
@@ -150,3 +151,18 @@ def load_state(parser: argparse.ArgumentParser, args, cfg: Config):
     if state is not None and transform is not None:
         state = transform(state)
     return cfg, state
+
+
+def _console_entry(name: str):
+    """The console script of ``cli.<name>``: its ``main()`` returns a result
+    dict, which ``sys.exit`` would take for a failure, so the script's
+    function returns None."""
+    def run() -> None:
+        importlib.import_module(f"snipper_tpu_torch.cli.{name}").main()
+
+    return run
+
+
+train_main, eval_main, infer_main, export_main, dump_labels_main = (
+    _console_entry(n)
+    for n in ("train", "eval", "infer", "export", "dump_labels"))

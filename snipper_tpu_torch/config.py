@@ -4,13 +4,16 @@ The port's own copy of the JAX package's ``Config``: the same fields, the
 same defaults, the same presets and the same ``validate``, so that one
 command line means the same model in both packages.
 
-Four fields only steer the TPU sampling formulations and are accepted here
-but ignored: ``deform_impl``, ``sampling_margin``, ``sampling_block_h/w``
-and ``remat_policy``. The port's deformable sampling is one exact gather
+Four fields steer the TPU sampling formulations and are accepted here but
+ignored: ``deform_impl``, ``sampling_margin``, ``sampling_block_h/w`` and
+``remat_policy``. The port's deformable sampling is one exact gather
 kernel (``ops/csrc/msda_forward.cu``), with no window that could overflow,
 no alternative formulation to choose, and no rematerialization to tune.
-They stay so that presets, command lines and ``validate`` match the JAX
-package's.
+The one exception is ``deform_impl="skip"``, JAX's profiling stand-in: the
+model then takes the mean of the value over its tokens in place of the
+sampling, as the JAX model does (not exact; the probe's ``split`` times
+the forward without the sampling with it). They stay so that presets,
+command lines and ``validate`` match the JAX package's.
 """
 
 from __future__ import annotations

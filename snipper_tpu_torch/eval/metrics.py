@@ -1,8 +1,8 @@
 """3D / 2D pose evaluation metrics (numpy, host-side).
 
 The port's own copy of ``snipper_tpu/eval/metrics.py``; the assignment in
-``matcher_pose3d`` is scipy's ``linear_sum_assignment`` (the JAX package
-calls its native ``lsa_pairs``, which falls back to the same scipy call).
+``matcher_pose3d`` is ``data/native_ops.py::lsa_pairs``, as in the JAX
+package.
 Counterpart of reference ``eval_utils.py``:
 - ``eval_pose3d``      — per-frame greedy-LSA match in 3D then MPJPE
                          accumulation (reference ``eval_utils.py:5-67``)
@@ -27,7 +27,7 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
-from scipy.optimize import linear_sum_assignment
+from snipper_tpu_torch.data.native_ops import lsa_pairs
 
 POSE3D_DATASETS = ("mupots", "jta", "panoptic", "synthetic")
 
@@ -59,7 +59,7 @@ def matcher_pose3d(gt_pose3d: np.ndarray, gt_vis: np.ndarray,
     d[:, :, :1] *= cost_root
     d[:, :, 1:] *= cost_joint
     cost = d.sum(-1) / (vis.sum((-1, -2)) + matcher_eps)
-    src, tgt = linear_sum_assignment(cost)
+    src, tgt = lsa_pairs(cost)
     return np.asarray(src, np.int64), np.asarray(tgt, np.int64)
 
 

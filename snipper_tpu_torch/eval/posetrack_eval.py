@@ -16,7 +16,7 @@ dependency):
 Operates on a simple per-frame array schema; adapters parse the PoseTrack18
 JSON files written by ``eval/posetrack_writer.py`` and the GT annotation
 JSONs. The port's own copy of ``snipper_tpu/eval/posetrack_eval.py``; its
-Hungarian step is scipy's ``linear_sum_assignment``.
+Hungarian step is ``data/native_ops.py::lsa_pairs``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,20 +29,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from snipper_tpu_torch.data.native_ops import lsa_pairs
+
 MIN_SCORE = -9999.0
-
-
-def lsa_pairs(cost: np.ndarray):
-    """Optimal pairs ``(rows, cols)`` of an ``[m, n]`` cost
-    (``scipy.optimize.linear_sum_assignment``, rows sorted)."""
-    from scipy.optimize import linear_sum_assignment
-
-    cost = np.asarray(cost, np.float64)
-    if cost.size == 0:
-        z = np.zeros(0, np.int64)
-        return z, z
-    rows, cols = linear_sum_assignment(cost)
-    return rows.astype(np.int64), cols.astype(np.int64)
 
 
 @dataclass

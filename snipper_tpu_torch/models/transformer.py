@@ -59,8 +59,9 @@ class TemporalDeformAttn(nn.Module):
     projection pair shared by the sampled frames."""
 
     def __init__(self, d_model: int, n_levels: int, n_heads: int,
-                 n_points: int, n_frames: int):
+                 n_points: int, n_frames: int, impl: str = "xla"):
         super().__init__()
+        self.impl = impl  # cfg.deform_impl: "skip" elides the sampling
         self.d_model, self.n_levels = d_model, n_levels
         self.n_heads, self.n_points = n_heads, n_points
         self.head_dim = d_model // n_heads
@@ -106,7 +107,7 @@ class TemporalDeformAttn(nn.Module):
         logits = self.attention_weights(query).reshape(B, T1, Lq, H, L, P)
         adjacency = temporal_adjacency(self.n_frames, T1)
         out, overflow = temporal_deform_sample(value, spatial_shapes, loc,
-                                               logits, adjacency)
+                                               logits, adjacency, self.impl)
         out = row_parallel(self.output_proj, out, self.mesh)
         if return_attn:
             attn = torch.softmax(logits.reshape(B, T1, Lq, H, L * P),
@@ -162,11 +163,11 @@ class TorchMultiheadAttention(nn.Module):
 
 class EncoderLayer(nn.Module):
     def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points, n_frames,
-                 dropout=0.1):
+                 dropout=0.1, impl="xla"):
         super().__init__()
         self.dropout = dropout
         self.self_attn = TemporalDeformAttn(d_model, n_levels, n_heads,
-                                            n_points, n_frames)
+                                            n_points, n_frames, impl)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = tag(nn.Linear(d_model, d_ffn), "xavier")
         self.linear2 = tag(nn.Linear(d_ffn, d_model), "xavier")
@@ -192,13 +193,13 @@ class EncoderLayer(nn.Module):
 
 class DecoderLayer(nn.Module):
     def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points, n_frames,
-                 dropout=0.1):
+                 dropout=0.1, impl="xla"):
         super().__init__()
         self.dropout = dropout
         self.self_attn = TorchMultiheadAttention(d_model, n_heads, dropout)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.cross_attn = TemporalDeformAttn(d_model, n_levels, n_heads,
-                                             n_points, n_frames)
+                                             n_points, n_frames, impl)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = tag(nn.Linear(d_model, d_ffn), "xavier")
         self.linear2 = tag(nn.Linear(d_ffn, d_model), "xavier")
@@ -260,7 +261,7 @@ class DeformableTransformer(nn.Module):
     def __init__(self, d_model, n_heads, num_encoder_layers,
                  num_decoder_layers, dim_feedforward, num_feature_levels,
                  enc_n_points, dec_n_points, n_frames, n_future_frames,
-                 num_keypoints, dropout=0.1):
+                 num_keypoints, dropout=0.1, impl="xla"):
         super().__init__()
         self.d_model, self.n_heads = d_model, n_heads
         self.num_feature_levels = num_feature_levels
@@ -273,11 +274,11 @@ class DeformableTransformer(nn.Module):
         for i in range(num_encoder_layers):
             setattr(self, f"encoder_layer{i}", EncoderLayer(
                 d_model, dim_feedforward, L, n_heads, enc_n_points, n_frames,
-                dropout))
+                dropout, impl))
         for i in range(num_decoder_layers):
             setattr(self, f"decoder_layer{i}", DecoderLayer(
                 d_model, dim_feedforward, L, n_heads, dec_n_points, n_frames,
-                dropout))
+                dropout, impl))
         self.num_encoder_layers = num_encoder_layers
         self.num_decoder_layers = num_decoder_layers
         self.reference_points = tag(nn.Linear(d_model, 2), "xavier")

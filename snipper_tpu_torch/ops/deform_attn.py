@@ -87,6 +87,7 @@ def temporal_deform_sample(
     sampling_locations: torch.Tensor,
     attention_logits: torch.Tensor,
     adjacency: np.ndarray,
+    impl: str = "xla",
 ) -> Tuple[torch.Tensor, int]:
     """Args:
       value: ``[B, T2, S, H, D]`` per observed frame.
@@ -97,6 +98,12 @@ def temporal_deform_sample(
         the reference's joint softmax over ``(L, P, frames)`` for shared
         projections.
       adjacency: ``[T1, T2]`` static 0/1 from :func:`temporal_adjacency`.
+      impl: ``cfg.deform_impl``. ``"skip"`` is JAX's profiling stand-in
+        (``snipper_tpu/ops/deform_attn.py:1290-1295``): the mean of the
+        aggregated value over S, broadcast to every query; it launches no
+        kernel and is not exact. Every other name runs the exact
+        ``ms_deform_attn`` (the kernel on CUDA, the plain version on the
+        CPU).
 
     Returns ``(out [B, T1, Lq, H*D], overflow)``. ``overflow`` is always 0:
     the sampling is an exact gather with no window that could drop taps.
@@ -122,6 +129,10 @@ def temporal_deform_sample(
         [sum(value[:, t2] for t2 in range(T2) if adj[t1, t2] > 0)
          for t1 in range(T1)], dim=1)                     # [B, T1, S, H, D]
 
+    if impl == "skip":
+        v_flat = v_agg.reshape(B * T1, S, nH * D)
+        out = v_flat.mean(1, keepdim=True).expand(B * T1, Lq, nH * D)
+        return out.reshape(B, T1, Lq, nH * D), 0
     # fold T1 into the batch for one sampling call
     out = ms_deform_attn(
         v_agg.reshape(B * T1, S, nH, D), spatial_shapes,

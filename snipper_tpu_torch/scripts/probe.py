@@ -1,10 +1,15 @@
-"""Probes on the card: the port of ``scripts/probe.py``'s ``op`` and
-``lanegather`` subcommands, which time the sampling formulations and the
-TPU kernels' questions at the JAX probe's own sizes, of its ``serve``
-and ``fast`` subcommands, which time the serving artifact against the live
-forward and the ``--fast`` profiles, and of ``meshscale``, which times
+"""Probes on the card: the port of ``scripts/probe.py``. ``forward``,
+``train`` and ``split`` time the model's forward per preset, the training
+step and the forward without the sampling; ``op`` and ``lanegather`` time
+the sampling formulations and the TPU kernels' questions at the JAX
+probe's own sizes; ``serve`` and ``fast`` time the serving artifact
+against the live forward and the ``--fast`` profiles; ``meshscale`` times
 data-parallel serving over N ranks.
 
+    python -m snipper_tpu_torch.scripts.probe forward \\
+        [--presets canonical_t4,light_t1] [--batch 1,4] [--dtype f32]
+    python -m snipper_tpu_torch.scripts.probe train [--mp both] [-K 4]
+    python -m snipper_tpu_torch.scripts.probe split [--preset canonical_t4]
     python -m snipper_tpu_torch.scripts.probe op \\
         --impls windowed,windowed2d,windowed2d_pallas,pmerged,pallas,core
     python -m snipper_tpu_torch.scripts.probe lanegather
@@ -42,6 +47,25 @@ seeds one model, maps its one state dict to each profile of ``--specs``
 base's; a spec that raises prints ``FAIL`` and the probe exits non-zero
 after ``DONE``. Both run the forward in f32, as ``cli.infer`` does.
 
+``forward`` seeds each preset's model and a uniform input per batch and
+prints the JAX probe's line (ms/snippet, snippets/s, overflow, shapes),
+with ``impl=`` what ran: ``kernel`` (the ``msda_forward`` kernel),
+``plain`` (the plain MSDA on the CPU) or ``skip`` (``--impl skip``: no
+sampling). ``--dtype bf16`` is the forward under bf16 autocast on f32
+weights (the port's mixed precision, as in training; the JAX probe casts
+its weights to bf16), ``f32`` the forward in f32; TF32 is off for both.
+A preset that raises prints ``FAIL`` and the probe exits non-zero after
+``DONE``. ``train`` builds the trainer's state and steps it over one
+synthetic batch already on the device: the first step is timed apart
+(the JAX line's ``compile``), then K steps by the host clock to the read
+of the last loss; ``--profile_dir`` traces those K steps and prints the
+top device ops (the line then says ``(traced)``). ``--impls`` and
+``--remat`` go into the config as in the JAX probe: every impl but
+``skip`` runs the exact kernel, and the port has no rematerialization.
+``split`` times the bf16-autocast forward with ``deform_impl="skip"`` at
+(enc, dec) in {(6,6), (2,6), (6,2), (1,1)} and solves
+``t = c0 + e*ce + d*cd`` by least squares.
+
 ``meshscale`` times the forward of a global batch of N snippets split
 over N ranks, N in {1, 4, 8}, one rank per card (NCCL), or N gloo ranks
 on the CPU with ``--device cpu`` (the CPU counts as one device unless
@@ -51,14 +75,12 @@ JAX probe's overhead efficiency ``eff(N) = t(1, b1) / (t(N, bN) / N)``
 time per forward between two barriers. N larger than the devices prints
 ``n=N: skipped (k devices)``. Each rank must hold exactly B/N rows of the
 global batch, disjoint from the others'.
-
-The JAX probe's other subcommands (forward, train, split) are not yet
-ported and are refused.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import sys
 import time
@@ -66,8 +88,6 @@ import traceback
 
 import numpy as np
 import torch
-
-NOT_PORTED = ("forward", "train", "split")
 
 
 # ---------------------------------------------------------------- timing
@@ -127,7 +147,184 @@ def encoder_inputs(seed: int = 0, max_off_px: float = 6.0, device="cuda"):
     return value.to(device), shapes, loc.to(device), attn.to(device)
 
 
+def make_cfg(preset: str, **over):
+    from snipper_tpu_torch.config import Config
+
+    cfg = getattr(Config, preset)()
+    return cfg.replace(**over) if over else cfg
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """cuBLAS and cuDNN in true f32 for the block."""
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    prev = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = False
+    try:
+        yield
+    finally:
+        for f, v in zip(flags, prev):
+            f.allow_tf32 = v
+
+
+def _ran(cfg, device) -> str:
+    """What the model's deformable sampling runs on ``device``."""
+    if cfg.deform_impl == "skip":
+        return "skip"
+    return "kernel" if device.type == "cuda" else "plain"
+
+
 # ---------------------------------------------------------- subcommands
+def cmd_forward(args) -> int:
+    """Per-preset inference throughput over batch sizes; returns the number
+    of (preset, batch) points that failed."""
+    from snipper_tpu_torch.models.snipper import resolve_device
+
+    device = resolve_device(args.device)
+    bf16 = args.dtype == "bf16"
+    note = "bf16 autocast, f32 weights" if bf16 else "f32"
+    rng = np.random.default_rng(0)
+    failed = 0
+    with tf32_off():
+        for preset in args.presets.split(","):
+            for batch in (int(b) for b in args.batch.split(",")):
+                try:
+                    cfg = make_cfg(preset, deform_impl=args.impl)
+                    model = _seeded_state(cfg, device)
+                    x = torch.from_numpy(rng.uniform(
+                        0, 1, (batch, cfg.num_frames, cfg.input_height,
+                               cfg.input_width, 3)).astype(np.float32)
+                    ).to(device)
+
+                    def fwd(xx, model=model):
+                        with torch.autocast(device.type, torch.bfloat16,
+                                            enabled=bf16):
+                            return model(xx)
+
+                    ovf = float(fwd(x)["sampling_overflow"])
+                    ms = time_fn(lambda xx: fwd(xx)["pred_logits"], x,
+                                 K=args.K)
+                    del model
+                    per = ms / batch
+                    print(f"{preset:16s} b{batch}: {per:7.1f} ms/snippet "
+                          f"({1e3 / per:6.2f} snippets/s) overflow={ovf} "
+                          f"[{cfg.input_height}x{cfg.input_width} "
+                          f"T={cfg.num_frames}+{cfg.num_future_frames} "
+                          f"enc{cfg.enc_layers}/dec{cfg.dec_layers} "
+                          f"impl={_ran(cfg, device)} {note}]", flush=True)
+                except Exception as e:  # noqa: BLE001 - reported, counted
+                    failed += 1
+                    _fail(f"{preset} b{batch}", e)
+    return failed
+
+
+def cmd_train(args) -> int:
+    """Train-step timing over impl x mixed precision: the first step apart,
+    then K steps; returns the number of runs that failed."""
+    from snipper_tpu_torch.data.loader import DataLoader
+    from snipper_tpu_torch.data.synthetic import SyntheticDataset
+    from snipper_tpu_torch.losses.criterion import SetCriterion
+    from snipper_tpu_torch.models.snipper import build_model, resolve_device
+    from snipper_tpu_torch.train.state import create_train_state
+    from snipper_tpu_torch.train.step import batch_to_device, train_step
+
+    device = resolve_device(args.device)
+    sync = torch.cuda.synchronize if device.type == "cuda" else lambda: None
+    mps = {"on": (True,), "off": (False,), "both": (False, True)}[args.mp]
+    failed = 0
+    for impl in args.impls.split(","):
+        for mp in mps:
+            try:
+                cfg = make_cfg(args.preset, deform_impl=impl,
+                               remat_policy=args.remat)
+                model = build_model(cfg, device=device, seed=1)
+                crit = SetCriterion(cfg)
+                state = create_train_state(cfg, model, steps_per_epoch=100)
+                dataset = SyntheticDataset(
+                    cfg, n_samples=max(2, args.batch_size))
+                loader = DataLoader(dataset, args.batch_size, shuffle=False)
+                # a batch on the device: training overlaps the copy
+                # (loader.device_prefetch), so the timing leaves it out
+                batch = batch_to_device(next(iter(loader)), device)
+                gen = torch.Generator().manual_seed(2)
+                t0 = time.perf_counter()
+                m = train_step(state, crit, batch, gen, mixed_precision=mp)
+                loss0 = float(m["loss_total"])
+                sync()
+                compile_s = time.perf_counter() - t0
+
+                def steps():
+                    t0 = time.perf_counter()
+                    for _ in range(args.K):
+                        m = train_step(state, crit, batch, gen,
+                                       mixed_precision=mp)
+                    loss1 = float(m["loss_total"])
+                    ms = (time.perf_counter() - t0) / args.K * 1e3
+                    return m, loss1, ms
+
+                if args.profile_dir:
+                    from snipper_tpu_torch.utils import profiling
+
+                    with profiling.trace(args.profile_dir):
+                        m, loss1, ms = steps()
+                        sync()
+                    top = profiling.summarize_trace(args.profile_dir,
+                                                    top_k=20,
+                                                    n_iters=args.K)
+                    print(f"-- top device ops (ms/step, {impl} mp={mp}):")
+                    for src, t_ms in top.items():
+                        print(f"   {t_ms:8.2f}  {src}", flush=True)
+                else:
+                    m, loss1, ms = steps()
+                ovf = float(m["sampling_overflow"])
+                del state, model
+                traced = " (traced)" if args.profile_dir else ""
+                print(f"train {impl} mp={mp} remat={args.remat} "
+                      f"b{args.batch_size}: {ms:.1f} ms/step{traced} "
+                      f"(compile {compile_s:.0f}s, "
+                      f"loss {loss0:.1f}->{loss1:.1f}, overflow {ovf})",
+                      flush=True)
+            except Exception as e:  # noqa: BLE001 - reported, counted
+                failed += 1
+                _fail(f"train {impl} mp={mp}", e)
+    return failed
+
+
+def cmd_split(args) -> int:
+    """The forward without the sampling (``deform_impl="skip"``, bf16
+    autocast) at four (enc, dec) depths, and the least-squares split
+    ``t = c0 + e*ce + d*cd``; returns 0 (a point that fails raises)."""
+    from snipper_tpu_torch.models.snipper import resolve_device
+
+    device = resolve_device(args.device)
+    rng = np.random.default_rng(0)
+    pts = []
+    with tf32_off():
+        for e, d in ((6, 6), (2, 6), (6, 2), (1, 1)):
+            cfg = make_cfg(args.preset, deform_impl="skip", enc_layers=e,
+                           dec_layers=d)
+            model = _seeded_state(cfg, device)
+            x = torch.from_numpy(rng.uniform(
+                0, 1, (1, cfg.num_frames, cfg.input_height,
+                       cfg.input_width, 3)).astype(np.float32)).to(device)
+
+            def fwd(xx, model=model):
+                with torch.autocast(device.type, torch.bfloat16):
+                    return model(xx)["pred_logits"]
+
+            ms = time_fn(fwd, x, K=args.K)
+            del model
+            pts.append((e, d, ms))
+            print(f"enc={e} dec={d}: {ms:7.2f} ms", flush=True)
+    A = np.array([[1, e, d] for e, d, _ in pts], np.float64)
+    y = np.array([ms for _, _, ms in pts])
+    c0, ce, cd = np.linalg.lstsq(A, y, rcond=None)[0]
+    print(f"solved: c0={c0:.2f} ms  ce={ce:.3f} ms/enc-layer  "
+          f"cd={cd:.3f} ms/dec-layer", flush=True)
+    return 0
+
+
 def _op_fn(impl, value, shapes, segs, bc, margin):
     """``(fn(loc, attn), unpack)`` for one impl name of the sweep;
     ``unpack``: fn returns ``(out, overflow)``."""
@@ -435,6 +632,36 @@ def main(argv=None) -> int:
         formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    f = sub.add_parser("forward")
+    f.add_argument("--presets", default="canonical_t4,canonical_t4_f2,"
+                   "light_t4_f2,light_t4,light_t1,canonical_t1,"
+                   "jta_forecast,panoptic")
+    f.add_argument("--impl", default="windowed")
+    f.add_argument("--batch", default="1")
+    f.add_argument("--dtype", default="bf16", choices=("bf16", "f32"))
+    f.add_argument("-K", type=int, default=8)
+    f.add_argument("--device", default="cuda")
+    f.set_defaults(fn=cmd_forward)
+
+    t = sub.add_parser("train")
+    t.add_argument("--preset", default="canonical_t4_f2")
+    t.add_argument("--impls", default="xla")
+    t.add_argument("--mp", default="on", choices=("on", "off", "both"))
+    t.add_argument("--remat", default="save_sampling")
+    t.add_argument("--batch_size", type=int, default=2)
+    t.add_argument("-K", type=int, default=4)
+    t.add_argument("--profile_dir", default=None,
+                   help="trace the timed steps (torch.profiler) and print "
+                        "the top-20 device ops")
+    t.add_argument("--device", default="cuda")
+    t.set_defaults(fn=cmd_train, inference=False)
+
+    s = sub.add_parser("split")
+    s.add_argument("--preset", default="canonical_t4")
+    s.add_argument("-K", type=int, default=10)
+    s.add_argument("--device", default="cuda")
+    s.set_defaults(fn=cmd_split)
+
     o = sub.add_parser("op")
     o.add_argument("--impls", default="windowed,core")
     o.add_argument("--base_chunk", default="512")
@@ -477,13 +704,8 @@ def main(argv=None) -> int:
     ms.add_argument("--device", default="cuda")
     ms.set_defaults(fn=cmd_meshscale)
 
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in NOT_PORTED:
-        p.error(f"subcommand {argv[0]!r} is not yet ported to "
-                f"snipper_tpu_torch (ROADMAP A4); the JAX probe "
-                f"scripts/probe.py runs it")
     args = p.parse_args(argv)
-    # serve and fast build models (and an export) outside inference mode
+    # train, serve and fast run autograd or an export: no inference mode
     with torch.inference_mode(getattr(args, "inference", True)):
         failed = args.fn(args)
     print("DONE", flush=True)

@@ -607,7 +607,7 @@ def test_harness_matches_jax(case, tmp_path):
 
 
 def test_lsa_pairs_is_optimal():
-    """The port's scipy pairs against JAX's ``lsa_pairs``: the same cost
+    """The port's ``lsa_pairs`` (its C++ op) against JAX's: the same cost
     (the pair order may differ), wide and tall."""
     from snipper_tpu.data.native_ops import lsa_pairs
 

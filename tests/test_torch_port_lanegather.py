@@ -228,14 +228,6 @@ def test_probe_lanegather_prints_no_tpu_figure(monkeypatch, capsys):
     assert "TPU" not in out and "v5e" not in out
 
 
-@pytest.mark.parametrize("cmd", probe.NOT_PORTED)
-def test_probe_refuses_unported_subcommands(cmd, capsys):
-    with pytest.raises(SystemExit) as exc:
-        probe.main([cmd])
-    assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
-
-
 def test_probe_runs_on_cuda_by_default(monkeypatch):
     """Without a card the probe raises; it never falls back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
