@@ -109,7 +109,17 @@ result):
    12 forward and 12 backward launches per step) and ``probe split -K 3``
    (``deform_impl="skip"``: no launch), each with the counts at 0 just
    before and read just after, exit 0 and no FAIL line.
-9. Print one JSON line of kernel numbers, then the card's name and power
+9. Drive the bench: ``python -m snipper_tpu_torch.bench`` in a fresh
+   process (``chip_smoke.py --bench-child``, which runs the module as
+   ``-m`` does with the counts set to 0 just before and read just after):
+   exit 0, its one JSON line (logged) with no FAIL, ``sampling_overflow``
+   0, numbers for every leg and the bound, its ``device`` naming this
+   card, and one ``msda_forward`` launch per layer and forward call, one
+   ``msda_backward`` per layer and train step. Then the bench's
+   canonical_t4 b1 bf16-autocast forward with the kernel against the same
+   forward with the plain MSDA on the card (each ``pred_*`` within 4 bf16
+   units of its scale; 12 launches a forward).
+10. Print one JSON line of kernel numbers, then the card's name and power
    limit, then, as the last line, ``{"ok": true, "device": {...}}``.
 """
 
@@ -176,6 +186,11 @@ TOL_NATIVE_WARP = 1e-5
 TOL_LSA_COST = 1e-9
 # the runbook's goldens against the live forward (the same f32 forward)
 TOL_RUNBOOK = 1e-5
+# the bench's bf16-autocast forward, kernel against plain MSDA: bf16
+# roundoff in other places through 12 layers; in bf16 units (BF16_UNIT) of
+# each output's scale, the bar the CPU test holds it to against JAX's bf16
+# forward (tests/test_torch_port_bench.py)
+TOL_BENCH_BF16_UNITS = 4
 
 
 def check(cond, msg):
@@ -2654,6 +2669,140 @@ def torchrun_cli(mode, out_json, argv):
     return 0
 
 
+def bench_child(out_json):
+    """The child of :func:`phase_bench`: ``snipper_tpu_torch.bench`` run as
+    ``python -m`` runs it (``runpy``, ``__main__``, no arguments) with the
+    kernels' counts set to 0 just before and read just after, written to
+    ``out_json``; returns the bench's exit code."""
+    import runpy
+
+    from snipper_tpu_torch.ops.msda import ms_deform_attn
+
+    sys.argv = ["snipper_tpu_torch.bench"]
+    # ---- the bench, with every kernel's count at 0 -----------------------
+    ms_deform_attn.launches = 0
+    ms_deform_attn.backward_launches = 0
+    try:
+        runpy.run_module("snipper_tpu_torch.bench", run_name="__main__",
+                         alter_sys=True)
+        rc = 0
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else 1
+    launches = {"msda_forward": ms_deform_attn.launches,
+                "msda_backward": ms_deform_attn.backward_launches}
+    # ----------------------------------------------------------------------
+    with open(out_json, "w") as f:
+        json.dump({"launches": launches}, f)
+    return rc
+
+
+def phase_bench(work, card):
+    """The bench (``python -m snipper_tpu_torch.bench``) in a fresh process:
+    exit 0, one JSON line with no FAIL, ``sampling_overflow`` 0, numbers
+    for the four legs and the bound, a ``device`` naming this card, and
+    one ``msda_forward`` launch per layer and forward call (one
+    ``msda_backward`` per layer and train step), counted in the child.
+    Then the bench's canonical_t4 b1 forward (bf16 autocast, seeded, its
+    own input) with the kernel against the same forward with the plain
+    MSDA on the card: each ``pred_*`` within ``TOL_BENCH_BF16_UNITS`` bf16
+    units of its scale, 12 launches a forward; and that forward's wall
+    time, kernel time and busy share (``breakdown``)."""
+    import numpy as np
+    import torch
+
+    from snipper_tpu_torch import bench
+    from snipper_tpu_torch.config import Config
+    from snipper_tpu_torch.models.snipper import build_model
+    from snipper_tpu_torch.ops import deform_attn
+    from snipper_tpu_torch.ops.msda import ms_deform_attn, ms_deform_attn_torch
+
+    log("bench (python -m snipper_tpu_torch.bench):")
+    out_json = os.path.join(work, "bench_launches.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--bench-child",
+         out_json], capture_output=True, text=True, timeout=900,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines,
+          f"the bench exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    line = lines[-1]
+    log(f"bench line: {line}")
+    rec = json.loads(line)
+    check("FAIL" not in line, "the bench recorded a FAIL")
+    check(rec["sampling_overflow"] == 0,
+          f"bench sampling_overflow {rec['sampling_overflow']}")
+    dev = rec["device"]
+    check(dev.get("platform") == "gpu"
+          and f"{dev.get('name')}, {dev.get('power_limit')}" == card
+          and dev.get("count") == torch.cuda.device_count(),
+          f"the bench's device {dev} does not name the card {card!r}")
+    legs = (rec["value"], rec["train_step_ms_T4F2_bf16mp_b2"],
+            rec["configs_snippets_per_sec"]["light_t1_b4"],
+            rec["fast_snippets_per_sec"]["p2,r480"], rec["analytic_tflop"],
+            rec["analytic_hbm_gb"], rec["x_hbm_floor"])
+    check(all(isinstance(v, float) and v > 0 for v in legs),
+          f"a leg of the bench is not a positive number: {legs}")
+    with open(out_json) as f:
+        launches = json.load(f)["launches"]
+
+    def layers(preset):
+        cfg = getattr(Config, preset)()
+        return cfg.enc_layers + cfg.dec_layers
+
+    def calls(k):
+        return 1 + bench.PASSES * k  # the warm-up, then the passes
+
+    # p2,r480 keeps canonical_t4's layers
+    want_fwd = (layers("canonical_t4") * (calls(bench.VALUE_K)
+                                          + calls(bench.FAST_K))
+                + layers("canonical_t4_f2") * calls(bench.TRAIN_K)
+                + layers("light_t1") * calls(bench.CONFIG_K))
+    want_bwd = layers("canonical_t4_f2") * calls(bench.TRAIN_K)
+    check(launches == {"msda_forward": want_fwd, "msda_backward": want_bwd},
+          f"bench launches {launches}, expected {want_fwd} + {want_bwd}")
+
+    # the bench's forward, kernel against plain MSDA
+    set_tf32(False)
+    cfg = Config.canonical_t4()
+    model = build_model(cfg, device="cuda", seed=0)
+    x = bench.input_batch(np.random.default_rng(0), cfg, 1, "cuda")
+    ms_deform_attn.launches = 0
+    got = bench.forward_bf16(model, x)
+    torch.cuda.synchronize()
+    per_forward = ms_deform_attn.launches
+    check(per_forward == layers("canonical_t4"),
+          f"the bench's forward launched msda_forward {per_forward} times")
+    wrapper = deform_attn.ms_deform_attn
+    deform_attn.ms_deform_attn = ms_deform_attn_torch
+    try:
+        want = bench.forward_bf16(model, x)
+    finally:
+        deform_attn.ms_deform_attn = wrapper
+    units = {}
+    for k in ("pred_logits", "pred_kpts2d", "pred_depth"):
+        w = want[k].float()
+        scale = max(1.0, w.abs().max().item())
+        units[k] = ((got[k].float() - w).abs().max().item() / scale
+                    / BF16_UNIT)
+    check(all(u <= TOL_BENCH_BF16_UNITS for u in units.values()),
+          f"the bench's forward, kernel vs plain MSDA: {units} bf16 units")
+    # where the bench's forward spends its time
+    bd = breakdown(lambda: bench.forward_bf16(model, x))
+    del model
+    torch.cuda.empty_cache()
+    log(f"bench: exit 0 in {seconds:.1f} s, launches {launches}; its "
+        f"forward kernel vs plain within "
+        f"{max(units.values()):.3f} bf16 units ({units}), {per_forward} "
+        f"launches a forward; one forward {bd['wall_ms']:.2f} ms wall, "
+        f"{bd['device_ms']:.2f} ms of {bd['kernel_launches']} kernels "
+        f"(busy {bd['busy_share']:.3f}), msda_forward {bd['msda_ms']:.3f} "
+        f"ms; top {bd['top']} ({card})")
+    return dict(line=rec, launches=launches, per_forward=per_forward,
+                units=units, seconds=seconds, breakdown=bd)
+
+
 def phase_multi_gpu(work, card):
     """The multi-GPU paths on one card, which shows them right, not
     scaling: (a) an f32 canonical_t4_f2 step (dropout 0, TF32 off) on two
@@ -2972,6 +3121,9 @@ def main() -> int:
     agree_res = phase_train_agreement()
     # 8. the probe path
     probe_res = phase_probes()
+    # 9. the bench
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as work:
+        bench_res = phase_bench(work, card)
 
     enc = shapes_res["encoder"]
     benc = bwd_res["train_encoder"]
@@ -3016,6 +3168,8 @@ def main() -> int:
         "probe_train_launches": probe_res["train_launches"][0],
         "probe_split_launches": probe_res["split_launches"],
         "runbook_launches": runbook_res["launches"],
+        "bench_launches": bench_res["launches"]["msda_forward"],
+        "bench_per_forward_launches": bench_res["per_forward"],
         "shapes": shapes_res,
     }, {
         "name": "msda_backward",
@@ -3045,6 +3199,7 @@ def main() -> int:
         "torchrun_train_launches":
             mg_res["torchrun"]["train_launches"]["msda_backward"],
         "probe_train_launches": probe_res["train_launches"][1],
+        "bench_launches": bench_res["launches"]["msda_backward"],
         "shapes": bwd_res,
     }]
     k2 = win_res["win2d_sample"]
@@ -3133,6 +3288,8 @@ def main() -> int:
         f"{mg_res['serve_two_ranks']['snippets_per_s']} snippets/s, "
         f"torchrun cli.infer --data_parallel "
         f"{mg_res['torchrun']['infer_snippets_per_s']:.3f} snippets/s; "
+        f"bench value {bench_res['line']['value']} snippets/s, train "
+        f"{bench_res['line']['train_step_ms_T4F2_bf16mp_b2']} ms/step; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -3145,4 +3302,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--torchrun-cli"]:
         sys.exit(torchrun_cli(sys.argv[2], sys.argv[3], sys.argv[4:]))
+    if sys.argv[1:2] == ["--bench-child"]:
+        sys.exit(bench_child(sys.argv[2]))
     sys.exit(main())

@@ -50,7 +50,7 @@ def device_constant(values, like: torch.Tensor) -> torch.Tensor:
     tensors per input resolution."""
     values = np.asarray(values, np.float32)
     if like.device.type != "cuda":
-        return torch.as_tensor(values)
+        return torch.as_tensor(values, device=like.device)
     key = (values.tobytes(), values.shape, like.device)
     t = _DEVICE_CONSTANTS.get(key)
     if t is None:

@@ -206,6 +206,18 @@ def _(value, shapes, loc, attn):
     return value.new_empty(N, loc.shape[1], H * D)
 
 
+def msda_forward_flops(value_shape, shapes, loc_shape, attn_shape,
+                       out_shape=None, **kwargs) -> int:
+    """Operations of one ``msda_forward`` from its arguments' shapes, in
+    ``torch.utils.flop_counter``'s form (``FlopCounterMode(custom_mapping=
+    {torch.ops.snipper_tpu_torch.msda_forward: msda_forward_flops})``):
+    per sampled tap, its four bilinear corner weights times the attention
+    weight (8: the corner product and the scaling) and, per corner, D
+    multiply-adds (8 D)."""
+    N, Lq, H, L, P = attn_shape
+    return N * Lq * H * L * P * (8 * value_shape[-1] + 8)
+
+
 def msda_backward(value: torch.Tensor,
                   spatial_shapes: Sequence[Tuple[int, int]],
                   loc: torch.Tensor, attn: torch.Tensor,

@@ -67,7 +67,8 @@ def test_port_imports_no_jax_module():
                  "data.preprocess.mupots", "data.preprocess.cmu_panoptic",
                  "data.preprocess.jta", "infer.fast", "infer.export",
                  "cli.export", "utils.profiling", "cli.dump_labels",
-                 "data.preprocess.visualize", "scripts.parity_runbook"):
+                 "data.preprocess.visualize", "scripts.parity_runbook",
+                 "bench"):
         assert f"snipper_tpu_torch.{name}" in res["imported"], name
     leaked = [m for m in res["modules"]
               if m.split(".")[0] in FORBIDDEN + ("matplotlib", "PIL")]

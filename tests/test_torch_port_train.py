@@ -4,8 +4,10 @@ mixed precision.
 
 Inputs are numpy from a seed, fed to both packages; weights go from the
 flax tree to the port through ``convert.state_dict_from_jax``. Everything
-runs in f32 on the CPU with dropout 0, except the dropout and
-mixed-precision checks, which hold the port against itself.
+runs in f32 on the CPU with dropout 0, except the dropout check and the
+mixed-precision checks: one holds the port's bf16 autocast against its own
+f32 steps, the other against JAX's mixed-precision step (weights and
+images cast to bf16), both at the 5% bar of tests/test_train_step.py.
 """
 
 import numpy as np
@@ -457,6 +459,31 @@ def test_mixed_precision_tracks_f32_losses(tiny_pair):
     for a, b in zip(traj[False], traj[True]):
         assert abs(a - b) / max(abs(a), 1e-6) < 0.05, traj
     assert traj[True][-1] < traj[True][0]
+
+
+def test_mixed_precision_step_matches_jax(tiny_pair):
+    """The port's mixed precision (bf16 autocast on f32 weights) against
+    JAX's (weights and images cast to bf16, ``make_train_step(
+    mixed_precision=True)``): the losses of two steps within 5% relative,
+    the bar of tests/test_train_step.py:114. The two round in other
+    places, so the bar is the known difference's, not an f32 tolerance."""
+    jcfg, jm, params, cfg, host = tiny_pair
+    jbatch = {"images": jnp.asarray(host["images"]),
+              "targets": _to_jax(host["targets"])}
+    state, tx = jax_train_state(jcfg, _to_jax(params), steps_per_epoch=10)
+    step = make_train_step(jm, JaxCriterion(jcfg), tx, donate=False,
+                           mixed_precision=True)
+    tstate = create_train_state(cfg, _port_model(cfg, params),
+                                steps_per_epoch=10)
+    crit, batch = SetCriterion(cfg), batch_to_device(host, CPU)
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(2):
+        state, j_metrics = step(state, jbatch, jax.random.PRNGKey(0))
+        metrics = train_step(tstate, crit, batch, gen, mixed_precision=True)
+        want = float(j_metrics["loss_total"])
+        got = metrics["loss_total"].item()
+        assert np.isfinite(got) and abs(got - want) / abs(want) < 0.05, \
+            (got, want)
 
 
 @pytest.mark.parametrize("process_index,process_count,shuffle",
