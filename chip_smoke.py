@@ -53,6 +53,17 @@ result):
    just after): launches per batch, finite ``eval_stats.json``, the
    renders, ms per eval batch. Then the PoseTrack18 and COCO harnesses on
    perfect predictions: AP 100 and MOTA 100.
+   Then training to accuracy through ``cli.train`` and ``cli.eval``, bf16
+   mixed precision, counts at 0 just before and read just after each run
+   (launches per update and per eval batch): (a) the protocol of
+   tests/test_train_accuracy.py at tiny (the random-init floor, 400
+   updates of 8 over 8 fixed synthetic samples with the StepLR drop at
+   epoch 10, the checkpoint's eval), held to that test's bars; (b)
+   canonical_t4_f2 at full width and depth, 1600 updates of 2 over 8 fixed
+   samples, held to a halved loss, a halved pel-MPJPE and a 3DPCK 0.2 over
+   the floor's, with JAX's bars reported; per leg the stats, the loss at
+   updates 1, 100, 200, 300, 400 (and 800, 1200, 1600), ms per update,
+   peak memory, seconds.
    Then training and eval from reference-format files: a PoseTrack18-format
    set (two videos, 1280x720 and 1920x1080) written and extracted with the
    port's ``preprocess.posetrack``; the card's train warp held against the
@@ -1975,6 +1986,242 @@ def phase_eval(work, ckpt, samples=8):
                 seconds=res["seconds"], n_stats=len(stats), renders=renders)
 
 
+# the bars of tests/test_train_accuracy.py:54, :87-95 (the JAX package's
+# train-to-accuracy test), held by phase_train_accuracy's tiny leg
+JAX_FLOOR_3DPCK = 0.2
+JAX_ACCURACY_BARS = (("3dpck", ">=", 0.70), ("future_3dpck", ">=", 0.70),
+                     ("pel_mpjpe_joint", "<=", 0.12),
+                     ("mpjpe_root", "<=", 0.25), ("mpjpe_joint", "<=", 0.30))
+# the JAX recipe's rates (lr 1e-3, lr_backbone 5e-4, dropout 0) for both
+# legs; each leg drops the lr 10x at 5/8 of its updates
+ACCURACY_RECIPE = ["--lr", "0.001", "--lr_backbone", "0.0005",
+                   "--dropout", "0.0"]
+# at canonical width loss_is_human sits near 0.14 for hundreds of updates
+# and no query is scored a person (so cli.eval writes no 3D metric) until
+# the person score passes 0.5, some 600 to over 1000 updates in: the
+# canonical leg trains 1600, and, as JAX's canonical overfit run did for
+# the same plateau (NOTES_r5.md:116-134), with the heatmap term at weight
+# 0.001
+CANONICAL_UPDATES = 1600
+CANONICAL_HEATMAP_COEF = ["--heatmap_loss_coef", "0.001"]
+LOSS_AT_UPDATES = (1, 100, 200, 300, 400, 800, 1200, 1600)
+
+
+def jax_accuracy_bars(stats, floor):
+    """``{bar: passed}`` for every bar of tests/test_train_accuracy.py:87-95
+    on trained ``stats`` against the random-init ``floor`` (a metric the
+    eval did not write, for want of a detection, fails its bar)."""
+    nan = float("nan")
+    bars = {f"{k} {op} {v}": (stats.get(k, nan) >= v if op == ">="
+                              else stats.get(k, nan) <= v)
+            for k, op, v in JAX_ACCURACY_BARS}
+    bars["3dpck > floor + 0.5"] = (stats.get("3dpck", nan)
+                                   > floor.get("3dpck", nan) + 0.5)
+    bars["pel_mpjpe_joint < 0.1 x floor"] = (
+        stats.get("pel_mpjpe_joint", nan)
+        < 0.1 * floor.get("pel_mpjpe_joint", nan))
+    return bars
+
+
+def _accuracy_cli(cli, argv, out_dir):
+    """``cli.main(argv)`` (the module of ``cli.train`` or ``cli.eval``)
+    with the MSDA counts at 0 just before and read just after: ``(result,
+    {kernel: launches})``; an eval's result carries its
+    ``eval_stats.json``."""
+    from snipper_tpu_torch.cli import eval as eval_cli
+    from snipper_tpu_torch.ops.msda import ms_deform_attn
+
+    ms_deform_attn.launches = 0
+    ms_deform_attn.backward_launches = 0
+    res = cli.main(argv + ["--output_dir", out_dir, "--device", "cuda"])
+    launches = {"msda_forward": ms_deform_attn.launches,
+                "msda_backward": ms_deform_attn.backward_launches}
+    if cli is eval_cli:
+        with open(os.path.join(out_dir, "eval_stats.json")) as f:
+            res["file_stats"] = json.load(f)
+    return res, launches
+
+
+def _accuracy_leg(work, name, preset, n_layers, train_argv, eval_argv,
+                  updates, midway=None):
+    """One leg of phase_train_accuracy: ``cli.eval`` from random init (the
+    floor), ``cli.train`` for ``updates`` bf16 mixed-precision updates,
+    ``cli.eval`` on its last checkpoint (and, reported alone, on the
+    checkpoint ``midway = (epoch, updates by its end)``); the launches of
+    each run checked
+    (``n_layers`` of ``msda_forward`` per update and eval batch, of
+    ``msda_backward`` per update)."""
+    import torch
+
+    from snipper_tpu_torch.cli import eval as eval_cli
+    from snipper_tpu_torch.cli import train as train_cli
+
+    t0 = time.perf_counter()
+    base = ["--preset", preset, "--synthetic", "--synthetic_distinct", "8",
+            "--overfit"]
+    floor_res, floor_n = _accuracy_cli(
+        eval_cli, base + eval_argv, os.path.join(work, f"{name}_floor"))
+    torch.cuda.reset_peak_memory_stats()
+    train_dir = os.path.join(work, f"{name}_train")
+    res, train_n = _accuracy_cli(train_cli, base + train_argv, train_dir)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    trained_res, trained_n = _accuracy_cli(
+        eval_cli, base + eval_argv + ["--resume", res["checkpoint"]],
+        os.path.join(work, f"{name}_trained"))
+    evals = [("floor", floor_res, floor_n), ("trained", trained_res,
+                                              trained_n)]
+    if midway is not None:
+        epoch, at_update = midway
+        ckpt = os.path.join(train_dir, "ckpts", f"checkpoint{epoch:04d}.pt")
+        evals.append(("midway", *_accuracy_cli(
+            eval_cli, base + eval_argv + ["--resume", ckpt],
+            os.path.join(work, f"{name}_midway"))))
+        midway = dict(update=at_update, stats=evals[-1][1]["file_stats"])
+    seconds = time.perf_counter() - t0
+
+    hist = res["history"]
+    check(len(hist) == updates, f"{name}: {len(hist)} updates, expected "
+          f"{updates}")
+    n_eval = res["eval"]["_batches"] if res["eval"] else 0
+    check(train_n == {"msda_forward": n_layers * (updates + n_eval),
+                      "msda_backward": n_layers * updates},
+          f"{name}: cli.train launched {train_n} in {updates} updates and "
+          f"{n_eval} eval batches, expected {n_layers} of each per update "
+          f"and {n_layers} msda_forward per eval batch")
+    for what, r, n in evals:
+        check(n == {"msda_forward": n_layers * r["batches"],
+                    "msda_backward": 0},
+              f"{name}: the {what} cli.eval launched {n} in {r['batches']}"
+              f" batches, expected {n_layers} msda_forward per batch")
+    losses = [h["loss_total"] for h in hist]
+    check(all(math.isfinite(x) for x in losses), f"{name}: losses {losses}")
+    with open(os.path.join(train_dir, "log.txt")) as f:
+        logged = [json.loads(line) for line in f]
+    floor, stats = floor_res["file_stats"], trained_res["file_stats"]
+    bad = {k: v for s in (floor, stats) for k, v in s.items()
+           if not math.isfinite(v)}
+    check(not bad, f"{name}: non-finite eval stats {bad}")
+    return dict(
+        floor=floor, stats=stats, logged=logged, seconds=seconds,
+        peak_gb=peak_gb, losses=losses,
+        loss_at={u: losses[u - 1] for u in LOSS_AT_UPDATES
+                 if u <= len(losses)},
+        is_human_at={u: hist[u - 1]["loss_is_human"]
+                     for u in LOSS_AT_UPDATES if u <= len(hist)},
+        # a step's ``seconds`` leaves out the wait for its batch: the
+        # period is the two together (host clock, as phase_train)
+        step_ms=statistics.median(h["seconds"] for h in hist[2:]) * 1e3,
+        period_ms=statistics.median(h["seconds"] + h["data_seconds"]
+                                    for h in hist[2:]) * 1e3,
+        launches={"train": train_n,
+                  **{f"{what}_eval": n for what, _, n in evals}},
+        eval_batches={"train": n_eval,
+                      **{what: r["batches"] for what, r, _ in evals}},
+        midway=midway, jax_bars=jax_accuracy_bars(stats, floor))
+
+
+def _log_accuracy_leg(card, name, what, r):
+    def brief(s):
+        return {k: round(s[k], 4) for k in (
+            "3dpck", "future_3dpck", "pel_mpjpe_joint", "mpjpe_root",
+            "mpjpe_joint") if k in s}
+
+    midway = r["midway"]
+    log(f"train to accuracy, {name} ({what}): floor {brief(r['floor'])}; "
+        f"trained {brief(r['stats'])}; "
+        + (f"at update {midway['update']} {brief(midway['stats'])} (eval "
+           f"loss_is_human {midway['stats']['loss_is_human']:.4f}); "
+           if midway else "")
+        + "loss_total at updates "
+        + ", ".join(f"{u}: {x:.4f}" for u, x in r["loss_at"].items())
+        + " (loss_is_human "
+        + ", ".join(f"{x:.4f}" for x in r["is_human_at"].values())
+        + f"); {r['period_ms']:.2f} ms per update (step {r['step_ms']:.2f};"
+        f" host clock, median after the first two), peak device memory "
+        f"{r['peak_gb']:.2f} GB, {r['seconds']:.1f} s for the leg; launches"
+        f" {r['launches']} over eval batches {r['eval_batches']}; JAX's "
+        "bars (tests/test_train_accuracy.py:87-95): "
+        + ", ".join(f"{k} {'pass' if ok else 'FAIL'}"
+                    for k, ok in r["jax_bars"].items())
+        + f" ({card}; cuDNN TF32 on, matmul TF32 off)")
+
+
+def phase_train_accuracy(work, card):
+    """Training learns, through the CLIs a user calls, on the card with bf16
+    mixed precision (the CLI's default).
+
+    (a) tests/test_train_accuracy.py's protocol: tiny, 8 fixed synthetic
+    samples, ``cli.eval`` from random init (its 3DPCK under 0.2), 400
+    updates of 8 (25 an epoch, 16 epochs, StepLR 10x at epoch 10) with one
+    eval at the end, ``cli.eval`` on the checkpoint: every bar of the JAX
+    test, and ``test_3dpck`` in ``log.txt``.
+    (b) canonical_t4_f2 at full width and depth: 8 fixed samples, batch 2,
+    1600 updates (200 an epoch, 8 epochs, the drop at epoch 5; the heatmap
+    loss at weight 0.001, as in JAX's canonical overfit run), ``cli.eval``
+    from random init and on the checkpoint, batches of 8 (and, reported
+    alone, on the checkpoint at update 600, which may score no person and
+    so hold no 3D metric: the person score lags at this width). Bars: the
+    mean ``loss_total`` of the last 20 updates at most half that of the
+    first 20, pel-MPJPE at most half the floor's, 3DPCK at least the
+    floor's + 0.2; JAX's bars are reported, not required.
+    """
+    import torch
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tiny = _accuracy_leg(
+        work, "tiny", "tiny", 3,
+        ["--synthetic_samples", "200", "--batch_size", "8", "--epochs", "16",
+         "--lr_drop", "10", "--eval_every", "16"] + ACCURACY_RECIPE,
+        ["--synthetic_samples", "8", "--batch_size", "8", "--dropout",
+         "0.0"], updates=400)
+    _log_accuracy_leg(card, "tiny", "the JAX test's protocol, batch 8",
+                      tiny)
+    check(tiny["floor"].get("3dpck", math.nan) < JAX_FLOOR_3DPCK,
+          f"tiny: the random-init floor's 3dpck is not under "
+          f"{JAX_FLOOR_3DPCK}: {tiny['floor']}")
+    failed = [k for k, ok in tiny["jax_bars"].items() if not ok]
+    check(not failed, f"tiny: JAX's bars failed: {failed} (trained "
+          f"{tiny['stats']}, floor {tiny['floor']})")
+    check([("test_3dpck" in line) for line in tiny["logged"]]
+          == [False] * 15 + [True], "tiny: log.txt holds no test_3dpck line"
+          " for the last epoch")
+
+    # no eval inside cli.train here (its val set cycles the 8 samples over
+    # 200 batches); cli.eval scores the checkpoint on the 8
+    canon = _accuracy_leg(
+        work, "canonical_t4_f2", "canonical_t4_f2", 12,
+        ["--synthetic_samples", str(CANONICAL_UPDATES // 4),
+         "--batch_size", "2", "--epochs", "8", "--lr_drop", "5",
+         "--eval_every", "9"] + ACCURACY_RECIPE + CANONICAL_HEATMAP_COEF,
+        ["--synthetic_samples", "8", "--batch_size", "8", "--dropout",
+         "0.0", "--num_workers", "8"], updates=CANONICAL_UPDATES,
+        midway=(2, 3 * CANONICAL_UPDATES // 8))
+    _log_accuracy_leg(card, "canonical_t4_f2", "600x800 enc6/dec6, batch 2",
+                      canon)
+    first, last = (statistics.fmean(canon["losses"][:20]),
+                   statistics.fmean(canon["losses"][-20:]))
+    floor, stats = canon["floor"], canon["stats"]
+    check(last <= 0.5 * first, f"canonical_t4_f2: mean loss_total of the "
+          f"last 20 updates {last:.4f} over half the first 20's {first:.4f}")
+    for k in ("pel_mpjpe_joint", "3dpck"):
+        check(k in floor and k in stats, f"canonical_t4_f2: no {k} (no "
+              f"detection): floor {floor}, trained {stats}")
+    check(stats["pel_mpjpe_joint"] <= 0.5 * floor["pel_mpjpe_joint"],
+          f"canonical_t4_f2: pel_mpjpe_joint {stats['pel_mpjpe_joint']} over"
+          f" half the floor's {floor['pel_mpjpe_joint']}")
+    check(stats["3dpck"] >= floor["3dpck"] + 0.2,
+          f"canonical_t4_f2: 3dpck {stats['3dpck']} under the floor's "
+          f"{floor['3dpck']} + 0.2")
+    canon.update(loss_first20=first, loss_last20=last)
+    seconds = time.perf_counter() - t0
+    log(f"train to accuracy: both legs' bars met; mean loss_total of the "
+        f"first / last 20 updates at canonical_t4_f2 {first:.4f} / "
+        f"{last:.4f}; phase {seconds:.1f} s ({card})")
+    return dict(tiny=tiny, canonical=canon, seconds=seconds)
+
+
 POSETRACK_VIDEOS = (("000001_mpii_test", 1280, 720),
                     ("000002_mpii_test", 1920, 1080))
 
@@ -3107,6 +3354,8 @@ def main() -> int:
         # 5. the training path, then the eval CLI on its checkpoint
         train_res = phase_train(work)
         eval_res = phase_eval(work, train_res["checkpoint"])
+        # 5f. training learns: the JAX accuracy protocol, then full width
+        acc_res = phase_train_accuracy(work, card)
         # 5a. training and eval from reference-format files
         real_res = phase_train_real(work, card)
         # 5b. the PoseTrack/COCO harness
@@ -3153,6 +3402,10 @@ def main() -> int:
         "per_train_forward_launches": train_res["per_forward"],
         "eval_launches": eval_res["launches"]["msda_forward"],
         "per_eval_batch_launches": eval_res["per_batch"],
+        "train_accuracy_launches": {
+            leg: {run: n["msda_forward"]
+                  for run, n in acc_res[leg]["launches"].items()}
+            for leg in ("tiny", "canonical")},
         "real_train_launches": real_res["train_launches"]["msda_forward"],
         "real_eval_launches": real_res["eval_launches"]["msda_forward"],
         "dp2_step_launches_per_rank": [
@@ -3189,6 +3442,9 @@ def main() -> int:
         "at": "train encoder shape, f32: N=8 Lq=9875 H=8 D=48 L=3 P=4",
         "ptxas": ptxas["msda_backward"],
         "per_train_step_launches": train_res["per_step"],
+        "train_accuracy_launches": {
+            leg: acc_res[leg]["launches"]["train"]["msda_backward"]
+            for leg in ("tiny", "canonical")},
         "profiled_train_launches": prof_res["launches"]["msda_backward"],
         "real_train_launches": real_res["train_launches"]["msda_backward"],
         "real_eval_launches": real_res["eval_launches"]["msda_backward"],
@@ -3273,7 +3529,13 @@ def main() -> int:
         f"{train_res['samples_per_s']:.3f} samples/s, peak "
         f"{train_res['peak_gb']:.2f} GB; from PoseTrack18-format files "
         f"{real_res['period_ms']:.2f} ms/step with --device_preprocess, "
-        f"{real_res['host_period_ms']:.2f} with the host warp; train step "
+        f"{real_res['host_period_ms']:.2f} with the host warp; trained to "
+        f"accuracy: tiny 3dpck {acc_res['tiny']['stats']['3dpck']:.4f} in "
+        f"{acc_res['tiny']['period_ms']:.2f} ms/update, canonical_t4_f2 "
+        f"3dpck {acc_res['canonical']['stats']['3dpck']:.4f} (floor "
+        f"{acc_res['canonical']['floor']['3dpck']:.4f}) in "
+        f"{acc_res['canonical']['period_ms']:.2f} ms/update, phase "
+        f"{acc_res['seconds']:.1f} s; train step "
         f"kernels vs plain: "
         f"gradients within {agree_res['grad_worst_rel']:.3e} of scale; "
         f"probe op windowed2d_pallas {probe_res['op_ms']['windowed2d_pallas']}"

@@ -66,6 +66,22 @@ from snipper_tpu_torch.train.engine import evaluate, train_one_epoch
 from snipper_tpu_torch.train.preemption import PreemptionGuard
 from snipper_tpu_torch.train.state import create_train_state
 
+# the sampling impls after which JAX's trainer redoes an overflowed step
+# with the exact impl (snipper_tpu/cli/train.py:124-136)
+WINDOWED = ("windowed", "windowed2d", "windowed_hybrid", "windowed_vjp")
+
+
+def exact_redo_stats(args, cfg) -> dict:
+    """The redo rate JAX's trainer logs per epoch, train and test, where it
+    samples windowed: by default (it turns "xla" into "windowed_vjp"
+    unless ``--deform_impl`` is given, ``snipper_tpu/cli/train.py:58-65``)
+    or when ``--deform_impl`` names a windowed impl. The port's sampling is
+    exact, so its rate is 0, logged under the same keys."""
+    impl = cfg.deform_impl
+    if args.deform_impl is None and impl == "xla":
+        impl = "windowed_vjp"
+    return {"sampling_exact_redo": 0.0} if impl in WINDOWED else {}
+
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser("snipper_tpu_torch trainer")
@@ -177,6 +193,7 @@ def train(args, device: torch.device) -> dict:
                "num_traj normalizer is microbatch-local (exact window "
                "num_traj needs single-process target visibility)")
 
+    redo = exact_redo_stats(args, cfg)
     guard = PreemptionGuard()
     history, ckpt_path, eval_stats = [], None, None
     t0 = time.time()
@@ -207,11 +224,13 @@ def train(args, device: torch.device) -> dict:
             print0(f"saved {ckpt_path}")
 
             log = {"epoch": epoch,
-                   **{f"train_{k}": v for k, v in train_stats.items()}}
+                   **{f"train_{k}": v
+                      for k, v in {**train_stats, **redo}.items()}}
             if not stop and (epoch + 1) % args.eval_every == 0:
                 eval_stats = evaluate(model, crit, val_loader, cfg, device,
                                       mesh=mesh)
-                log.update({f"test_{k}": v for k, v in eval_stats.items()
+                log.update({f"test_{k}": v
+                            for k, v in {**eval_stats, **redo}.items()
                             if not k.startswith("_")})
             if main_rank:
                 with open(os.path.join(args.output_dir, "log.txt"),

@@ -113,7 +113,9 @@ class SyntheticDataset:
         # overfit runs revisit the same few indices hundreds of times; the
         # full-grid gaussian render costs ~1-2 s/sample at canonical
         # 600x800, so cache the small fixed set (samples are deterministic
-        # per index and consumers stack copies, never mutate in place)
+        # per index). A cached sample's arrays are read-only and each visit
+        # gets its own dicts, so a consumer that wrote into one would raise
+        # instead of changing every later visit.
         self._cache: Dict[int, Dict] | None = (
             {} if distinct and distinct <= 64 else None)
 
@@ -123,11 +125,15 @@ class SyntheticDataset:
     def __getitem__(self, idx: int) -> Dict:
         if self.distinct:
             idx = idx % self.distinct
-        if self._cache is not None and idx in self._cache:
-            return self._cache[idx]
-        rng = np.random.default_rng(self.seed * 100_003 + idx)
-        sample = make_sample(self.cfg, rng)
-        if self._cache is not None:
+        sample = None if self._cache is None else self._cache.get(idx)
+        if sample is None:
+            rng = np.random.default_rng(self.seed * 100_003 + idx)
+            sample = make_sample(self.cfg, rng)
+            if self._cache is None:
+                return sample
+            for v in (sample["images"], *sample["targets"].values()):
+                if isinstance(v, np.ndarray):
+                    v.flags.writeable = False
             self._cache[idx] = sample
-        return sample
+        return dict(sample, targets=dict(sample["targets"]))
 

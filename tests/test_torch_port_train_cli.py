@@ -1,6 +1,7 @@
 """The port's training entry point on the CPU at the tiny preset:
-checkpoint and log per epoch, ``--resume auto``, the checkpoint feeding
-``cli.infer --resume``, the refused flags and the CUDA default."""
+checkpoint and log per epoch (its keys against those of JAX's trainer),
+``--resume auto``, the checkpoint feeding ``cli.infer --resume``, the
+refused flags and the CUDA default."""
 
 import json
 import os
@@ -44,6 +45,80 @@ def test_train_writes_checkpoint_and_eval_log(trained):
     assert np.isfinite(log["test_loss_total"])
     assert "test_loss_heatmap" in log
     assert res["eval"]["_batches"] == 4
+
+
+def _jax_trainer_keys():
+    """The metric keys of the train and eval steps that JAX's trainer builds
+    by default (``snipper_tpu/cli/train.py:58-65``, ``:124-136``: windowed
+    sampling, the exact model for the redo), read by tracing them on
+    abstract inputs, without a compile."""
+    import jax
+    import jax.numpy as jnp
+
+    from snipper_tpu.config import Config as JaxConfig
+    from snipper_tpu.losses.criterion import SetCriterion
+    from snipper_tpu.models.snipper import build_model
+    from snipper_tpu.train.state import create_train_state
+    from snipper_tpu.train.step import make_eval_step, make_train_step
+
+    cfg = JaxConfig.tiny().replace(deform_impl="windowed_vjp")
+    model = build_model(cfg)
+    exact = build_model(cfg.replace(deform_impl="xla"))
+    crit = SetCriterion(cfg)
+    M, T1, K = cfg.max_persons, cfg.total_frames, cfg.num_kpts
+    batch = {"images": jnp.zeros((1, cfg.num_frames, cfg.input_height,
+                                  cfg.input_width, 3)),
+             "targets": {"kpts2d": jnp.zeros((1, M, T1, K, 3)),
+                         "depth": jnp.zeros((1, M, T1, K, 2)),
+                         "valid": jnp.zeros((1, M), bool)}}
+
+    def metrics():
+        params = model.init(jax.random.PRNGKey(0), batch["images"])[
+            "params"]
+        state, tx = create_train_state(cfg, params, 1)
+        _, train = make_train_step(model, crit, tx, exact_model=exact)(
+            state, batch, jax.random.PRNGKey(1))
+        _, test, _ = make_eval_step(model, crit, exact_model=exact)(
+            params, batch)
+        return train, test
+
+    return jax.eval_shape(metrics)
+
+
+def test_log_keys_match_jax_trainer(trained):
+    """``log.txt`` holds the keys JAX's trainer writes: ``train_`` + its
+    step's metrics and ``lr``, ``test_`` + its eval step's metrics and the
+    3D/PCKh stats; among them the windowed sampling's redo rate, which the
+    port, always exact, logs as 0. Without the windowed default (an exact
+    ``--deform_impl``) JAX logs no redo rate, nor does the port."""
+    from snipper_tpu.train.engine import PCKH_KEYS, POSE3D_KEYS
+
+    from snipper_tpu_torch.config import Config
+
+    out, _ = trained
+    log = json.loads((out / "log.txt").read_text().splitlines()[0])
+    train, test = _jax_trainer_keys()
+    assert "sampling_exact_redo" in train and "sampling_exact_redo" in test
+    got_train = {k[len("train_"):] for k in log if k.startswith("train_")}
+    assert got_train == set(train) | {"lr"}
+    got_test = {k[len("test_"):] for k in log if k.startswith("test_")}
+    stats = {f"{p}{k}" for p in ("", "future_") for k in POSE3D_KEYS}
+    assert set(test) <= got_test <= set(test) | stats | set(PCKH_KEYS)
+    assert "3dpck" in got_test
+    assert set(log) == {"epoch"} | {f"train_{k}" for k in got_train} | {
+        f"test_{k}" for k in got_test}
+    assert log["train_sampling_exact_redo"] == 0.0
+    assert log["test_sampling_exact_redo"] == 0.0
+
+    cfg = Config.tiny()
+    for flag, impl, logged in ((None, "xla", True),
+                               ("xla", "xla", False),
+                               ("pmerged", "pmerged", False),
+                               ("windowed2d", "windowed2d", True)):
+        args = train_cli.build_parser().parse_args(
+            [] if flag is None else ["--deform_impl", flag])
+        got = train_cli.exact_redo_stats(args, cfg.replace(deform_impl=impl))
+        assert got == ({"sampling_exact_redo": 0.0} if logged else {}), flag
 
 
 def test_resume_auto_continues_at_next_epoch(trained, tmp_path):
