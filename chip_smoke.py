@@ -15,7 +15,11 @@ result):
    paths give it (``msda_forward`` at the inference and the train shapes,
    ``msda_backward`` against the plain VJP at the train shapes), f32 and
    bf16 value; time both with CUDA events beside the kernel's bound, and
-   print the per-shape times.
+   at K1's shapes (inference and train, encoder and decoder, and the
+   train shapes of a tensor-parallel rank) one ``embedding_bag`` call of
+   ``msda_forward``'s function, and at the train shapes that call's
+   backward in f32 (its d_value and d_attn held against the plain
+   VJP's); print the per-shape times.
 4. Drive the inference path: ``snipper_tpu_torch.cli.infer`` on
    canonical_t4 (full width and depth, 600x800, seeded random weights with
    perturbed sampling projections) over synthetic JPEG frames. Kernel
@@ -35,7 +39,11 @@ result):
    default specs (exit 0, no FAIL), the f32 canonical_t4 export on the
    card saved and loaded in a subprocess that imports only torch and the
    MSDA operators (12 launches per call, the live model's outputs within
-   1e-5), and the ``probe serve`` lines.
+   1e-5), the bf16 export (JAX's bf16 recipe: bf16 weights only, about
+   half the size, 12 launches per call, the live bf16 forward's outputs
+   within one bf16 unit, JAX's output dtypes), each artifact against its
+   live forward in turns, and the ``probe serve`` lines (bf16 weights, f32
+   input).
    Then the host ops (``data/native_ops.py``, built by the host C++
    compiler in phase 2; its command and build seconds printed, the op
    required): ``warp_patch`` against the port's numpy path at 1920x1080
@@ -44,8 +52,9 @@ result):
    threads against one (host clock); ``lsa_pairs`` against scipy's optimal
    cost on eval-sized costs (60 queries, up to 20 targets).
 5. Drive the training path: ``snipper_tpu_torch.cli.train`` on
-   canonical_t4_f2 (full width and depth), batch 2, bf16 mixed precision,
-   a few steps over the synthetic dataset, then its checkpoint and its
+   canonical_t4_f2 (full width and depth), batch 2, bf16 mixed precision
+   (JAX's recipe: the forward on bf16 copies of the f32 weights), a few
+   steps over the synthetic dataset, then its checkpoint and its
    evaluation; counts set to 0 just before and read just after. Check the
    launches per step, the checkpoint and finite losses. Then drive
    ``snipper_tpu_torch.cli.eval`` on that checkpoint (4 synthetic batches
@@ -114,7 +123,8 @@ result):
    impls) and ``probe lanegather`` through ``main``, counts set to 0 just
    before each and read just after; check the exit code, that no line
    says FAIL, and the ``windowed2d_pallas`` line's overflow and error.
-   Then ``probe forward`` (canonical_t4 and light_t1, batch 1 and 4, f32;
+   Then ``probe forward`` (canonical_t4 and light_t1, batch 1 and 4, bf16
+   weights and input;
    one ``msda_forward`` launch per decoder and encoder layer and forward
    call), ``probe train -K 2`` (canonical_t4_f2, batch 2, mixed precision;
    12 forward and 12 backward launches per step) and ``probe split -K 3``
@@ -127,9 +137,13 @@ result):
    0, numbers for every leg and the bound, its ``device`` naming this
    card, and one ``msda_forward`` launch per layer and forward call, one
    ``msda_backward`` per layer and train step. Then the bench's
-   canonical_t4 b1 bf16-autocast forward with the kernel against the same
-   forward with the plain MSDA on the card (each ``pred_*`` within 4 bf16
-   units of its scale; 12 launches a forward).
+   canonical_t4 b1 forward (bf16 weights cast once, a bf16 input; 12
+   launches a forward): each MSDA call, kernel against plain on the
+   inputs it received, within one bf16 rounding; the whole forward,
+   kernel against plain MSDA, within the spread of the plain forward
+   against itself with its levels summed in the other order; and that forward's kernel launches and busy share beside
+   those of the bf16-autocast forward that the recipe replaced (1738 and
+   0.337 on an H100).
 10. Print one JSON line of kernel numbers, then the card's name and power
    limit, then, as the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -197,11 +211,17 @@ TOL_NATIVE_WARP = 1e-5
 TOL_LSA_COST = 1e-9
 # the runbook's goldens against the live forward (the same f32 forward)
 TOL_RUNBOOK = 1e-5
-# the bench's bf16-autocast forward, kernel against plain MSDA: bf16
-# roundoff in other places through 12 layers; in bf16 units (BF16_UNIT) of
-# each output's scale, the bar the CPU test holds it to against JAX's bf16
-# forward (tests/test_torch_port_bench.py)
-TOL_BENCH_BF16_UNITS = 4
+# the bench's bf16 forward (bf16 weights, norms and residuals in bf16),
+# kernel against plain MSDA. Each MSDA call is held to TOL_BF16_REL on the
+# inputs it received. The whole forward cannot be held to a fixed count of
+# bf16 units at canonical depth: one bf16 rounding of an MSDA output in
+# another place moves the 12-layer bf16 forward by several units (summing
+# the plain MSDA's levels in the other order moved it 3.02 / 6.00 / 4.31
+# units at 128x192 on a CPU), so its rms difference is held to twice
+# that of the plain forward against itself with its levels reordered, in
+# the same run, or to TOL_BENCH_RMS_UNITS (bf16 units of each output's
+# scale) where that is smaller.
+TOL_BENCH_RMS_UNITS = 1.0
 
 
 def check(cond, msg):
@@ -438,10 +458,18 @@ TP2_CASES = [
 ]
 
 
+# the shapes of K1's rows in PERF.md, timed beside one embedding_bag call
+YARDSTICK_CASES = ("encoder", "decoder", "train_encoder", "train_decoder",
+                   "train_encoder_tp2", "train_decoder_tp2")
+
+
 def phase_kernels():
     """msda_forward vs plain version at the tiny, inference encoder and
     decoder, and train encoder and decoder shapes, the last two also at
-    the 4 heads of a tensor-parallel rank."""
+    the 4 heads of a tensor-parallel rank; at the shapes of
+    ``YARDSTICK_CASES`` (all but the tiny one) also one ``embedding_bag``
+    call of its function (f32 and bf16 value), checked against the plain
+    version."""
     import torch
 
     from snipper_tpu_torch.ops.msda import ms_deform_attn_torch, msda_forward
@@ -487,14 +515,35 @@ def phase_kernels():
                          bf16_ms=ms_b, device_ms=dev, bf16_device_ms=dev_b,
                          bound_ms=bound, bound_by=by,
                          bf16_bound_ms=bound_b, bytes=nbytes, ops=ops)
+        lib_note = "no library time at this shape"
+        if name in YARDSTICK_CASES:
+            # the yardstick: one embedding_bag call, its arguments built
+            # outside the timed region, the weights in the value's dtype
+            # as embedding_bag takes them
+            for tag, v, ref, t in (("", value, want, tol),
+                                   ("bf16_", vb, want_b, tol_b)):
+                table, bags, wts = msda_bag_args(v, shapes, loc, attn)
+                wts = wts.to(v.dtype)
+                lib = library_bag(table, bags, wts).view(ref.shape)
+                lib_err = (lib.float() - ref.float()).abs().max().item()
+                check(math.isfinite(lib_err) and lib_err <= t,
+                      f"embedding_bag yardstick of msda_forward {tag}{name}:"
+                      f" max abs diff {lib_err} > {t}")
+                res[name][f"{tag}library_max_abs_err"] = lib_err
+                res[name][f"{tag}library_ms"] = time_ms(
+                    lambda: library_bag(table, bags, wts))
+                del table, bags, wts, lib
+            lib_note = (f"one embedding_bag call {res[name]['library_ms']:.4f}"
+                        f" ms, bf16 {res[name]['bf16_library_ms']:.4f} ms "
+                        f"(max|diff| {res[name]['library_max_abs_err']:.3e}"
+                        f" / {res[name]['bf16_library_max_abs_err']:.3e})")
         log(f"msda_forward {name}: N={N} Lq={Lq} H={H} D={D} L={len(shapes)}"
             f" P={P}: f32 max|diff| {err:.3e} (tol {tol:g}), bf16 max|diff|"
             f" {err_b:.3e} (tol {tol_b:.3g}); kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bf16 kernel {ms_b:.4f} ms (device time "
             f"alone {dev:.4f}, bf16 {dev_b:.4f} ms); bound "
             f"{bound * 1e3:.2f} us by {by} ({nbytes / 1e6:.1f} MB, "
-            f"{ops / 1e9:.3f} GFLOP); no single PyTorch call computes MSDA "
-            f"(library_ms null)")
+            f"{ops / 1e9:.3f} GFLOP); {lib_note}")
         del value, loc, attn, vb, got, want, got_b, want_b
     torch.cuda.empty_cache()
     return res
@@ -513,8 +562,10 @@ def _grad_errors(got, want, bf16=False):
 def phase_backward():
     """msda_backward vs the plain VJP at the tiny and the train shapes (8
     heads, and the 4 of a tensor-parallel rank), f32 and bf16 value;
-    times of the kernel and of the plain backward (autograd through
-    grid_sample, its graph built once)."""
+    times of the kernel, of the plain backward (autograd through
+    grid_sample, its graph built once) and, at the train shapes in f32,
+    of the backward of one ``embedding_bag`` call (its d_value and d_attn
+    checked against the plain VJP's)."""
     import torch
 
     from snipper_tpu_torch.ops.msda import (ms_deform_attn_torch,
@@ -565,6 +616,45 @@ def phase_backward():
                                                    backward=True)
             row.update({f"{tag}_bound_ms": bound, f"{tag}_bound_by": by,
                         f"{tag}_bytes": nbytes, f"{tag}_ops": ops})
+            lib_note = "no library time at this shape"
+            if name in YARDSTICK_CASES and dt == torch.bfloat16:
+                # embedding_bag's per-sample-weight backward has no bf16
+                # CUDA kernel
+                lib_note = ("no library time in bf16 (embedding_bag's "
+                            "per-sample-weight backward takes no bf16 on "
+                            "CUDA)")
+            elif name in YARDSTICK_CASES:
+                # the yardstick: the backward of one embedding_bag call,
+                # which gives d_value and each tap's weight gradient, from
+                # which d_loc and d_attn follow elementwise (d_attn is
+                # checked)
+                table, bags, wts = msda_bag_args(v, shapes, loc, attn)
+                tbl = table.detach().requires_grad_(True)
+                w = wts.detach().requires_grad_(True)
+                g2 = go.reshape(-1, D)
+                with torch.enable_grad():
+                    lib_out = library_bag(tbl, bags, w)
+                d_tbl, d_w = torch.autograd.grad(lib_out, (tbl, w), g2,
+                                                 retain_graph=True)
+                lib_errs = [
+                    ((g_.float() - w_.float()).abs().max().item(),
+                     TOL_BWD_REL * max(1.0, w_.float().abs().max().item()))
+                    for g_, w_ in zip((d_tbl.view(v.shape),
+                                       msda_bag_attn_grad(d_w, shapes, loc)),
+                                      (want[0], want[2]))]
+                for n_, (err, tol) in zip(("d_value", "d_attn"), lib_errs):
+                    check(math.isfinite(err) and err <= tol,
+                          f"embedding_bag yardstick of msda_backward {tag} "
+                          f"{name} {n_}: max abs diff {err} > {tol}")
+                row[f"{tag}_library_max_abs_err"] = {
+                    n_: e for n_, (e, _) in zip(("d_value", "d_attn"),
+                                                lib_errs)}
+                row[f"{tag}_library_ms"] = time_ms(
+                    lambda: torch.autograd.grad(lib_out, (tbl, w), g2,
+                                                retain_graph=True), reps=10)
+                lib_note = (f"backward of one embedding_bag call "
+                            f"{row[f'{tag}_library_ms']:.4f} ms")
+                del table, bags, wts, tbl, w, lib_out, d_tbl, d_w
             log(f"msda_backward {name} {tag}: N={N} Lq={Lq} H={H} D={D} "
                 f"L={len(shapes)} P={P}: max|diff| "
                 + ", ".join(f"{n_} {e:.3e} (tol {t:.3g})"
@@ -573,8 +663,7 @@ def phase_backward():
                 f"{row[f'{tag}_device_ms']:.4f} ms), plain backward "
                 f"{row[f'{tag}_plain_ms']:.4f} ms; bound {bound * 1e3:.2f}"
                 f" us by {by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} "
-                f"GFLOP); no single PyTorch call computes the MSDA VJP "
-                f"(library_ms null)")
+                f"GFLOP); {lib_note}")
             del got, want
         res[name] = row
         del value, loc, attn, grad_out
@@ -691,6 +780,50 @@ def sample_bag_args(value, shapes, taps_list):
     LK = bags[0].shape[-1]
     return (value.reshape(-1, D), torch.cat(bags, 1).reshape(-1, LK).int(),
             torch.cat(weights, 1).reshape(-1, LK))
+
+
+def msda_bag_args(value, shapes, loc, attn):
+    """``embedding_bag``'s arguments for ``msda_forward``'s function (K1):
+    the table is the value's rows ``[N*S*H, D]``; per (n, q, h), in the
+    output's ``[N, Lq, H]`` order, a bag of its ``L*P*4`` corner taps
+    (``ops/deform_attn.py::corner_taps``, grid_sample's corners), each
+    weighted by its bilinear weight times its attention, a corner off the
+    map naming a clipped row with weight 0. The call's ``[N*Lq*H, D]`` is
+    the op's ``[N, Lq, H*D]``. Returns ``(table, bags int32, weights
+    f32)``."""
+    import torch
+
+    from snipper_tpu_torch.ops.deform_attn import corner_taps
+
+    N, S, H, D = value.shape
+    n = torch.arange(N, device=value.device).view(N, 1, 1, 1)
+    hh = torch.arange(H, device=value.device).view(1, 1, H, 1)
+    bags, weights, start = [], [], 0
+    for lvl, (h, w) in enumerate(shapes):
+        ys, xs, wgt = corner_taps(loc[:, :, :, lvl], attn[:, :, :, lvl], h, w)
+        bags.append((n * S + start + ys * w + xs) * H + hh)
+        weights.append(wgt)
+        start += h * w
+    K = sum(b.shape[-1] for b in bags)
+    return (value.reshape(-1, D), torch.cat(bags, -1).reshape(-1, K).int(),
+            torch.cat(weights, -1).reshape(-1, K))
+
+
+def msda_bag_attn_grad(d_weights, shapes, loc):
+    """d_attn ``[N, Lq, H, L, P]`` from the yardstick's per-tap weight
+    gradients (each the dot of grad_out with the tap's value row): each
+    tap's weight is its corner weight times the attention, so d_attn sums
+    the four corners' gradients times their corner weights."""
+    import torch
+
+    from snipper_tpu_torch.ops.deform_attn import corner_taps
+
+    N, Lq, H, L, P, _ = loc.shape
+    ones = torch.ones(N, Lq, H, P, device=loc.device)
+    cw = torch.stack([corner_taps(loc[:, :, :, lvl], ones, h, w)[2]
+                      for lvl, (h, w) in enumerate(shapes)], 3)
+    return (d_weights.float().view(N, Lq, H, L, P, 4)
+            * cw.view(N, Lq, H, L, P, 4)).sum(-1)
 
 
 def library_bag(table, bags, weights):
@@ -1010,7 +1143,7 @@ def probe_model_runs(K=8, train_K=2, split_K=3):
     presets, batches = ("canonical_t4", "light_t1"), (1, 4)
     out, (fwd, _) = run(["forward", "--presets", ",".join(presets),
                          "--batch", ",".join(map(str, batches)), "--dtype",
-                         "f32", "-K", str(K), "--device", "cuda"])
+                         "bf16", "-K", str(K), "--device", "cuda"])
     layers = {p: getattr(Config, p)().enc_layers
               + getattr(Config, p)().dec_layers for p in presets}
     calls = len(batches) * (2 + 2 * K)
@@ -1020,6 +1153,7 @@ def probe_model_runs(K=8, train_K=2, split_K=3):
     forward_lines = [ln for ln in out.splitlines() if "ms/snippet" in ln]
     check(len(forward_lines) == len(presets) * len(batches)
           and all("impl=kernel" in ln and "overflow=0.0" in ln
+                  and "bf16 weights and input" in ln
                   for ln in forward_lines), f"probe forward: {out}")
 
     out, (tf, tb) = run(["train", "-K", str(train_K), "--device", "cuda"])
@@ -1076,13 +1210,18 @@ def perturbed_model(cfg, seed=0):
     return model
 
 
-def max_output_diff(a, b):
+def max_output_diff(a, b, relative=False):
+    """Max |a - b| of each prediction and over the heatmaps; ``relative``:
+    each over the largest magnitude of ``b``'s (at least 1)."""
+    def diff(x, y):
+        x, y = x.float().cpu(), y.float().cpu()
+        d = (x - y).abs().max().item()
+        return d / max(1.0, y.abs().max().item()) if relative else d
+
     keys = ("pred_logits", "pred_kpts2d", "pred_depth")
-    diffs = {k: (a[k].float().cpu() - b[k].float().cpu()).abs().max().item()
-             for k in keys}
-    diffs["heatmaps"] = max(
-        (x.float().cpu() - y.float().cpu()).abs().max().item()
-        for x, y in zip(a["heatmaps"], b["heatmaps"]))
+    diffs = {k: diff(a[k], b[k]) for k in keys}
+    diffs["heatmaps"] = max(diff(x, y)
+                            for x, y in zip(a["heatmaps"], b["heatmaps"]))
     return diffs
 
 
@@ -1101,6 +1240,25 @@ def forward_with_plain_msda(model, x):
             return model(x)
     finally:
         deform_attn.ms_deform_attn = wrapper
+
+
+def msda_levels_reversed(value, shapes, loc, attn):
+    """The plain MSDA with its levels summed in the other order: the same
+    function up to f32 roundoff before the one rounding to the value's
+    dtype (a reference for how far a bf16 forward carries such a
+    rounding; the port never calls it)."""
+    from snipper_tpu_torch.ops.msda import ms_deform_attn_torch
+
+    starts = [0]
+    for h, w in shapes:
+        starts.append(starts[-1] + h * w)
+    out = None
+    for lvl in reversed(range(len(shapes))):
+        part = ms_deform_attn_torch(
+            value[:, starts[lvl]:starts[lvl + 1]].float(), [shapes[lvl]],
+            loc[:, :, :, lvl:lvl + 1], attn[:, :, :, lvl:lvl + 1])
+        out = part if out is None else out + part
+    return out.to(value.dtype)
 
 
 def breakdown(fn, top=8, reps=5, need=("msda_forward",)):
@@ -1417,6 +1575,10 @@ def phase_serving_device(work, host_res, card):
 # ------------------------------------------- serving profiles and export
 FAST_SPEC = "enc4,p2,r480"
 TOL_EXPORT = 1e-5
+# the bf16 artifact against the live bf16 forward: the same operators on
+# the same bf16 weights; one bf16 unit of each output's scale (they agree
+# bit for bit on the CPU, tests/test_torch_port_export.py)
+TOL_EXPORT_BF16_UNITS = 1
 
 _EXPORT_LOADER = r"""
 import json, sys, statistics
@@ -1458,13 +1620,20 @@ def phase_fast_export(work, card, main_res):
     with its default specs; (c) the f32 export on the card, saved and
     loaded in a subprocess that imports only torch and the MSDA operators:
     its outputs against the live model (TOL_EXPORT, TF32 off in both) and
-    its launches per call, then the ``probe serve`` lines."""
+    its launches per call; (d) the bf16 export (JAX's bf16 recipe: bf16
+    weights only, about half the size), loaded in this process, its
+    launches per call (counts at 0 just before and read just after) and
+    its outputs against the live bf16 forward (``ServingForward``,
+    TOL_EXPORT_BF16_UNITS) with JAX's output dtypes; each artifact and its
+    live forward in turns; then the ``probe serve`` lines (bf16 weights,
+    f32 input, ``-K 5``)."""
     import numpy as np
     import torch
 
     from snipper_tpu_torch.cli import infer as infer_cli
     from snipper_tpu_torch.config import Config
-    from snipper_tpu_torch.infer.export import (export_forward,
+    from snipper_tpu_torch.infer.export import (ServingForward,
+                                                export_forward,
                                                 load_exported, save_exported)
     from snipper_tpu_torch.infer.fast import fast_profiles
     from snipper_tpu_torch.infer.pipeline import iter_snippet_samples
@@ -1585,19 +1754,83 @@ def phase_fast_export(work, card, main_res):
         f"{loaded['launches']} launches per call, {loaded['ms']:.2f} ms per"
         f" call (CUDA events, TF32 off), max|diff| vs the live model "
         f"{json.dumps(export_diff)} (tol {TOL_EXPORT:g})")
+    # ---- (d) the bf16 artifact: JAX's bf16 recipe, cast once -----------
+    t0 = time.perf_counter()
+    exported_b = export_forward(base, model.state_dict(), device="cuda",
+                                param_dtype="bfloat16")
+    export_b_s = time.perf_counter() - t0
+    path_b = os.path.join(work, "canonical_t4_bf16.pt2")
+    size_b = save_exported(exported_b, path_b)
+    floats = [t for t in exported_b.state_dict.values()
+              if t.is_floating_point()]
+    weight_bytes = {name: sum(t.nbytes for t in ep.state_dict.values())
+                    for name, ep in (("f32", exported), ("bf16", exported_b))}
+    check(floats and all(t.dtype == torch.bfloat16 for t in floats)
+          and size_b < 0.6 * size,
+          f"the bf16 artifact holds a weight that is not bf16 or weighs "
+          f"{size_b} B against the f32 artifact's {size}")
+    nodes_b = sum("snipper_tpu_torch.msda_forward" in str(nd.target)
+                  for nd in exported_b.graph.nodes
+                  if nd.op == "call_function")
+    # loaded in this process (the f32 leg above shows that the loader
+    # needs no model code): launches of one call, counts at 0 just before
+    # and read just after, then ms per call (CUDA events, TF32 off)
+    run_b = load_exported(path_b)
+    xc = x.cuda()
+    ms_deform_attn.launches = 0
+    art_b = run_b(xc)
+    torch.cuda.synchronize()
+    launches_b = ms_deform_attn.launches
+    check(launches_b == per_call == nodes_b,
+          f"the bf16 artifact launched msda_forward {launches_b} times per "
+          f"call ({nodes_b} nodes), expected {per_call}")
+    ms_b = time_ms(lambda: run_b(xc), reps=10)
+    model_b = build_model(base, device="cuda")
+    model_b.load_state_dict(model.state_dict())
+    serving_b = ServingForward(model_b, "bfloat16").eval()
+    with torch.inference_mode():
+        live_b = serving_b(xc)
+    check(all(art_b[k].dtype == live_b[k].dtype == torch.bfloat16
+              for k in ("pred_logits", "pred_kpts2d", "pred_depth"))
+          and all(h.dtype == torch.float32 for h in art_b["heatmaps"]),
+          "the bf16 artifact's output dtypes are not JAX's")
+    units_b = {k: v / BF16_UNIT for k, v in max_output_diff(
+        art_b, live_b, relative=True).items()}
+    check(max(units_b.values()) <= TOL_EXPORT_BF16_UNITS,
+          f"bf16 artifact vs the live bf16 forward: {units_b} bf16 units")
+    log(f"export of canonical_t4 bf16 (JAX's recipe) on the card ({card}): "
+        f"traced in {export_b_s:.1f} s, {size_b / 1e6:.1f} MB "
+        f"({size_b / size:.3f} of the f32 artifact; weights "
+        f"{weight_bytes['bf16'] / 1e6:.1f} MB against "
+        f"{weight_bytes['f32'] / 1e6:.1f}), {nodes_b} "
+        f"msda_forward nodes, {launches_b} launches per call, "
+        f"{ms_b:.2f} ms per call (CUDA events, TF32 off); max|diff|"
+        f" vs the live bf16 forward {json.dumps(units_b)} bf16 units of "
+        f"scale (tol {TOL_EXPORT_BF16_UNITS})")
+    del exported_b, art_b, live_b
+
     # live and artifact in one process, in turns, as a user runs them
-    # (cuDNN TF32 on): wall, device time and kernel launches of a call
+    # (cuDNN TF32 on): wall, device time and kernel launches of a call,
+    # f32 then bf16
     torch.backends.cudnn.allow_tf32 = True
     run = load_exported(path)
-    xc = x.cuda()
 
     def live_fn():
         with torch.inference_mode():
             model(xc)
 
-    turns = {"live": [], "artifact": []}
+    def live_b_fn():
+        with torch.inference_mode():
+            serving_b(xc)
+
+    turns = {"live": [], "artifact": [], "live_bf16": [],
+             "artifact_bf16": []}
     for name, fn in (("live", live_fn), ("artifact", lambda: run(xc)),
-                     ("artifact", lambda: run(xc)), ("live", live_fn)):
+                     ("artifact", lambda: run(xc)), ("live", live_fn),
+                     ("live_bf16", live_b_fn),
+                     ("artifact_bf16", lambda: run_b(xc)),
+                     ("artifact_bf16", lambda: run_b(xc)),
+                     ("live_bf16", live_b_fn)):
         turns[name].append(breakdown(fn, top=1, reps=10))
 
     def both(bds, key, fmt):
@@ -1610,11 +1843,11 @@ def phase_fast_export(work, card, main_res):
             f"{both(bds, 'kernel_launches', 'd')} kernel launches, busy "
             f"{both(bds, 'busy_share', '.3f')}"
             for name, bds in turns.items()))
-    del model, live, exported, run
+    del model, live, exported, run, run_b, serving_b, model_b
     torch.cuda.empty_cache()
     log("probe serve (python -m snipper_tpu_torch.scripts.probe serve):")
     torch.backends.cudnn.allow_tf32 = True
-    rc, out = _run_probe(["serve", "--device", "cuda"])
+    rc, out = _run_probe(["serve", "--device", "cuda", "-K", "5"])
     check(rc == 0 and out.rstrip().endswith("DONE"),
           f"probe serve exited {rc}")
     serve = {}
@@ -1632,7 +1865,10 @@ def phase_fast_export(work, card, main_res):
                 fast_diff=fast_diff, probe_fast=probe_sps,
                 export_launches=loaded["launches"], export_bytes=size,
                 export_s=export_s, export_ms=loaded["ms"],
-                export_diff=export_diff, serve=serve, turns=turns)
+                export_diff=export_diff, serve=serve, turns=turns,
+                export_bf16=dict(bytes=size_b, s=export_b_s,
+                                 launches=launches_b, ms=ms_b,
+                                 units=units_b))
 
 
 def phase_profile_labels(work, card, real_root, steps=4):
@@ -2768,8 +3004,9 @@ def _rank_phase(inp):
     """One of two gloo ranks on cuda:0 (phase_multi_gpu (a), (b), (d)): an
     f32 canonical_t4_f2 step with dropout 0 on a data-parallel mesh (batch
     1 a rank) and on a tensor-parallel one (the batch of 2, 4 heads a
-    rank), then ``cli.infer``'s serving function over the two ranks. Each
-    run's kernel counts are set to 0 just before it and read just after."""
+    rank; two steps each, the first counted, the second timed), then
+    ``cli.infer``'s serving function over the two ranks. Each run's kernel
+    counts are set to 0 just before it and read just after."""
     import numpy as np
     import torch
 
@@ -2808,7 +3045,9 @@ def _rank_phase(inp):
              "targets": {k: host[k][rows] for k in ("kpts2d", "depth",
                                                     "valid")}}, dev)
         step_ms, reduce_ms = [], []
-        for i in range(3):
+        # the first step counted, the second timed (a third cost 5-6 s of
+        # gloo at tp2 and timed the same)
+        for i in range(2):
             torch.cuda.synchronize()
             if i == 0:
                 # ---- this rank's step, with its kernels' counts at 0 ----
@@ -2949,17 +3188,22 @@ def phase_bench(work, card):
     for the four legs and the bound, a ``device`` naming this card, and
     one ``msda_forward`` launch per layer and forward call (one
     ``msda_backward`` per layer and train step), counted in the child.
-    Then the bench's canonical_t4 b1 forward (bf16 autocast, seeded, its
-    own input) with the kernel against the same forward with the plain
-    MSDA on the card: each ``pred_*`` within ``TOL_BENCH_BF16_UNITS`` bf16
-    units of its scale, 12 launches a forward; and that forward's wall
-    time, kernel time and busy share (``breakdown``)."""
+    Then the bench's canonical_t4 b1 forward (JAX's bf16 recipe: seeded
+    weights cast to bf16 once, its own bf16 input), 12 launches a
+    forward: (a) each of its MSDA calls, kernel against plain on the
+    inputs that call received, within ``TOL_BF16_REL`` of its scale; (b)
+    the whole forward with the kernel against it with the plain MSDA,
+    each ``pred_*``'s rms difference within twice that of the plain
+    forward against itself with its levels summed in the other order (at
+    least ``TOL_BENCH_RMS_UNITS``). Then that forward's wall time, kernel
+    time, kernel launches and busy share (``breakdown``), beside the
+    1738 launches and 0.337 busy share of the bf16-autocast forward that
+    the recipe replaced (an H100 at 700 W)."""
     import numpy as np
     import torch
 
     from snipper_tpu_torch import bench
     from snipper_tpu_torch.config import Config
-    from snipper_tpu_torch.models.snipper import build_model
     from snipper_tpu_torch.ops import deform_attn
     from snipper_tpu_torch.ops.msda import ms_deform_attn, ms_deform_attn_torch
 
@@ -3013,41 +3257,88 @@ def phase_bench(work, card):
     # the bench's forward, kernel against plain MSDA
     set_tf32(False)
     cfg = Config.canonical_t4()
-    model = build_model(cfg, device="cuda", seed=0)
+    model = bench.bf16_net(cfg, "cuda")
     x = bench.input_batch(np.random.default_rng(0), cfg, 1, "cuda")
-    ms_deform_attn.launches = 0
-    got = bench.forward_bf16(model, x)
-    torch.cuda.synchronize()
-    per_forward = ms_deform_attn.launches
-    check(per_forward == layers("canonical_t4"),
-          f"the bench's forward launched msda_forward {per_forward} times")
+    check(x.dtype == torch.bfloat16 and all(
+        t.dtype == torch.bfloat16
+        for t in (*model.parameters(), *model.buffers())),
+        "the bench's forward holds a weight or input that is not bf16")
+    # each MSDA call of the bench's forward, its inputs kept
+    calls = []
     wrapper = deform_attn.ms_deform_attn
-    deform_attn.ms_deform_attn = ms_deform_attn_torch
+
+    def keep(value, shapes, loc, attn):
+        out = wrapper(value, shapes, loc, attn)
+        calls.append((value.clone(), shapes, loc.clone(), attn.clone(),
+                      out.clone()))
+        return out
+
+    deform_attn.ms_deform_attn = keep
     try:
-        want = bench.forward_bf16(model, x)
+        ms_deform_attn.launches = 0
+        got = bench.forward(model, x)
+        torch.cuda.synchronize()
+        per_forward = ms_deform_attn.launches
     finally:
         deform_attn.ms_deform_attn = wrapper
-    units = {}
-    for k in ("pred_logits", "pred_kpts2d", "pred_depth"):
-        w = want[k].float()
-        scale = max(1.0, w.abs().max().item())
-        units[k] = ((got[k].float() - w).abs().max().item() / scale
-                    / BF16_UNIT)
-    check(all(u <= TOL_BENCH_BF16_UNITS for u in units.values()),
-          f"the bench's forward, kernel vs plain MSDA: {units} bf16 units")
+    check(per_forward == len(calls) == layers("canonical_t4"),
+          f"the bench's forward launched msda_forward {per_forward} times")
+    # (a) every call, kernel against plain on the inputs it received
+    call_units = []
+    for value, shapes, loc, attn, out in calls:
+        ref = ms_deform_attn_torch(value, shapes, loc, attn).float()
+        scale = max(1.0, ref.abs().max().item())
+        err = (out.float() - ref).abs().max().item()
+        check(out.dtype == value.dtype == torch.bfloat16 and math.isfinite(
+            err) and err <= TOL_BF16_REL * scale,
+              f"the bench's forward, MSDA call {len(call_units)}: kernel vs"
+              f" plain max abs diff {err} > {TOL_BF16_REL * scale}")
+        call_units.append(err / scale / BF16_UNIT)
+    del calls
+    # (b) the whole forward, kernel against plain MSDA, beside the plain
+    # forward against itself with its levels summed in the other order:
+    # how far the bf16 model carries one bf16 rounding of an MSDA output
+    outs = {}
+    for name, fn in (("plain", ms_deform_attn_torch),
+                     ("reordered", msda_levels_reversed)):
+        deform_attn.ms_deform_attn = fn
+        try:
+            outs[name] = bench.forward(model, x)
+        finally:
+            deform_attn.ms_deform_attn = wrapper
+    units, rms = {}, {}
+    for pair, (a, b) in (("kernel", (got, outs["plain"])),
+                         ("reordered", (outs["reordered"], outs["plain"]))):
+        for k in ("pred_logits", "pred_kpts2d", "pred_depth"):
+            check(bool(torch.isfinite(a[k]).all()),
+                  f"the bench's forward ({pair}): non-finite {k}")
+            d = a[k].float() - b[k].float()
+            scale = max(1.0, b[k].float().abs().max().item()) * BF16_UNIT
+            units[f"{pair}/{k}"] = d.abs().max().item() / scale
+            rms[f"{pair}/{k}"] = d.pow(2).mean().sqrt().item() / scale
+    check(all(rms[f"kernel/{k}"] <= max(TOL_BENCH_RMS_UNITS,
+                                        2 * rms[f"reordered/{k}"])
+              for k in ("pred_logits", "pred_kpts2d", "pred_depth")),
+          f"the bench's forward, kernel vs plain MSDA: rms {rms} bf16 "
+          f"units (max {units})")
     # where the bench's forward spends its time
-    bd = breakdown(lambda: bench.forward_bf16(model, x))
+    bd = breakdown(lambda: bench.forward(model, x))
     del model
     torch.cuda.empty_cache()
     log(f"bench: exit 0 in {seconds:.1f} s, launches {launches}; its "
-        f"forward kernel vs plain within "
-        f"{max(units.values()):.3f} bf16 units ({units}), {per_forward} "
-        f"launches a forward; one forward {bd['wall_ms']:.2f} ms wall, "
-        f"{bd['device_ms']:.2f} ms of {bd['kernel_launches']} kernels "
-        f"(busy {bd['busy_share']:.3f}), msda_forward {bd['msda_ms']:.3f} "
-        f"ms; top {bd['top']} ({card})")
+        f"forward's MSDA calls, kernel vs plain on their inputs, within "
+        f"{max(call_units):.3f} bf16 units; the whole forward, kernel vs "
+        f"plain, max {json.dumps(units)} and rms {json.dumps(rms)} bf16 "
+        f"units (\"reordered\": the plain forward with its levels summed in"
+        f" the other order); {per_forward} "
+        f"msda_forward launches a forward; one forward (bf16 weights and "
+        f"input) {bd['wall_ms']:.2f} ms wall, {bd['device_ms']:.2f} ms of "
+        f"{bd['kernel_launches']} kernel launches (the bf16-autocast "
+        f"forward it replaced: 1738), busy {bd['busy_share']:.3f} (0.337), "
+        f"msda_forward {bd['msda_ms']:.3f} ms; top {bd['top']} ({card})")
     return dict(line=rec, launches=launches, per_forward=per_forward,
-                units=units, seconds=seconds, breakdown=bd)
+                call_units=call_units, units=units, rms=rms,
+                seconds=seconds, breakdown=bd)
 
 
 def phase_multi_gpu(work, card):
@@ -3330,8 +3621,17 @@ def main() -> int:
                 f" B loaded")
 
     # 3. kernels against their plain versions
-    shapes_res = phase_kernels()
-    bwd_res = phase_backward()
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+        log(f"phase {name}: {phase_s[name]} s")
+        return res
+
+    shapes_res = timed("kernels", phase_kernels)
+    bwd_res = timed("backward", phase_backward)
     log("msda per-shape times, ms per call f32 / bf16 value [device time "
         "alone f32 / bf16] (" + card + "): forward "
         + ", ".join(f"{k} {r['ms']:.4f} / {r['bf16_ms']:.4f} "
@@ -3341,38 +3641,42 @@ def main() -> int:
         + ", ".join(f"{k} {r['f32_ms']:.4f} / {r['bf16_ms']:.4f} "
                     f"[{r['f32_device_ms']:.4f} / {r['bf16_device_ms']:.4f}]"
                     for k, r in bwd_res.items()))
-    win_res = phase_windowed_kernels()
+    win_res = timed("windowed_kernels", phase_windowed_kernels)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         # 4. the inference path, with the host warp, then the device warp
-        main_res = phase_main_path(work)
-        serve_res = phase_serving_device(work, main_res, card)
+        main_res = timed("main_path", phase_main_path, work)
+        serve_res = timed("serving_device", phase_serving_device, work,
+                          main_res, card)
         # 4a. serving profiles and the exported artifact
-        fast_res = phase_fast_export(work, card, main_res)
+        fast_res = timed("fast_export", phase_fast_export, work, card,
+                         main_res)
         # 4b. the host ops
-        native_res = phase_native_ops(card)
+        native_res = timed("native_ops", phase_native_ops, card)
         # 5. the training path, then the eval CLI on its checkpoint
-        train_res = phase_train(work)
-        eval_res = phase_eval(work, train_res["checkpoint"])
+        train_res = timed("train", phase_train, work)
+        eval_res = timed("eval", phase_eval, work, train_res["checkpoint"])
         # 5f. training learns: the JAX accuracy protocol, then full width
-        acc_res = phase_train_accuracy(work, card)
+        acc_res = timed("train_accuracy", phase_train_accuracy, work, card)
         # 5a. training and eval from reference-format files
-        real_res = phase_train_real(work, card)
+        real_res = timed("train_real", phase_train_real, work, card)
         # 5b. the PoseTrack/COCO harness
-        harness_res = phase_harness(work)
+        harness_res = timed("harness", phase_harness, work)
         # 5c. a profiled training run, the label dump
-        prof_res = phase_profile_labels(work, card, real_res["root"])
+        prof_res = timed("profile_labels", phase_profile_labels, work, card,
+                         real_res["root"])
         # 5d. the parity runbook
-        runbook_res = phase_parity_runbook(work, card, real_res)
+        runbook_res = timed("parity_runbook", phase_parity_runbook, work,
+                            card, real_res)
         # 5e. the multi-GPU paths on this card
-        mg_res = phase_multi_gpu(work, card)
+        mg_res = timed("multi_gpu", phase_multi_gpu, work, card)
     # 6. a train step, kernels against the plain MSDA
-    agree_res = phase_train_agreement()
+    agree_res = timed("train_agreement", phase_train_agreement)
     # 8. the probe path
-    probe_res = phase_probes()
+    probe_res = timed("probes", phase_probes)
     # 9. the bench
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as work:
-        bench_res = phase_bench(work, card)
+        bench_res = timed("bench", phase_bench, work, card)
 
     enc = shapes_res["encoder"]
     benc = bwd_res["train_encoder"]
@@ -3387,9 +3691,11 @@ def main() -> int:
         "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"],
         "bound_by": enc["bound_by"],
-        "library_ms": None,
-        "library": "null: the corner decomposition from loc is part of its "
-                   "work; no one PyTorch call",
+        "library_ms": enc["library_ms"],
+        "library": "embedding_bag(mode='sum') over the value's rows, one "
+                   "bag of L*P*4 corner taps per (n, q, h), weights "
+                   "corner weight x attention (0 off the map); arguments "
+                   "built outside the timed region",
         "at": "inference encoder shape, f32: N=4 Lq=9875 H=8 D=48 L=3 P=4",
         "ptxas": ptxas["msda_forward"],
         "per_snippet_launches": main_res["per_snippet"],
@@ -3397,6 +3703,7 @@ def main() -> int:
             serve_res["launches"]["msda_forward"],
         "fast_serving_launches": fast_res["fast_launches"],
         "export_launches": fast_res["export_launches"],
+        "export_bf16_launches": fast_res["export_bf16"]["launches"],
         "profiled_train_launches": prof_res["launches"]["msda_forward"],
         "train_launches": train_res["launches"]["msda_forward"],
         "per_train_forward_launches": train_res["per_forward"],
@@ -3436,9 +3743,10 @@ def main() -> int:
         "plain_ms": benc["f32_plain_ms"],
         "bound_ms": benc["f32_bound_ms"],
         "bound_by": benc["f32_bound_by"],
-        "library_ms": None,
-        "library": "null: the VJP of the corner decomposition; no one "
-                   "PyTorch call",
+        "library_ms": benc["f32_library_ms"],
+        "library": "the backward of that one embedding_bag call (d_value "
+                   "and the per-tap weight gradients, from which d_loc and "
+                   "d_attn follow elementwise)",
         "at": "train encoder shape, f32: N=8 Lq=9875 H=8 D=48 L=3 P=4",
         "ptxas": ptxas["msda_backward"],
         "per_train_step_launches": train_res["per_step"],
@@ -3520,8 +3828,11 @@ def main() -> int:
         f"{main_res['steady_snippets_per_s']:.3f} snippets/s (host warp), "
         f"{serve_res['steady_snippets_per_s']:.3f} (--device_preprocess), "
         f"{fast_res['fast_steady_snippets_per_s']:.3f} (--fast {FAST_SPEC}); "
-        f"artifact {fast_res['serve']['ratio']:.3f}x live, "
-        f"{fast_res['export_bytes'] / 1e6:.1f} MB; "
+        f"bf16 artifact {fast_res['serve']['ratio']:.3f}x live (probe "
+        f"serve), {fast_res['export_bf16']['ms']:.2f} ms per call, "
+        f"{fast_res['export_bf16']['bytes'] / 1e6:.1f} MB (f32 "
+        f"{fast_res['export_ms']:.2f} ms, "
+        f"{fast_res['export_bytes'] / 1e6:.1f} MB); "
         f"eval {eval_res['batch_ms']:.2f} ms/batch; harness AP "
         f"{harness_res['posetrack_ap']:g} MOTA "
         f"{harness_res['posetrack_mota']:g}; training "
@@ -3552,6 +3863,7 @@ def main() -> int:
         f"{mg_res['torchrun']['infer_snippets_per_s']:.3f} snippets/s; "
         f"bench value {bench_res['line']['value']} snippets/s, train "
         f"{bench_res['line']['train_step_ms_T4F2_bf16mp_b2']} ms/step; "
+        f"phases {json.dumps(phase_s)} s; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

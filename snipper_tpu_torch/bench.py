@@ -15,31 +15,37 @@ Prints ONE JSON line with every key of the root bench's record
 - ``value``: canonical_t4 at batch 1, seeded weights (``build_model(cfg,
   seed=0)``) or ``SNIPPER_BENCH_PARAMS`` (a port checkpoint
   ``checkpointNNNN.pt`` of ``cli.train``, or a reference ``.pth``; the
-  canonical_t4 shapes are required), TF32 off, the forward under bf16
-  autocast on the f32 weights (the port's mixed precision; the root bench
-  casts its weights to bf16), a uniform input from
-  ``np.random.default_rng(0)``. One warm-up call (it builds the kernel at
-  first use), then two passes of 15 forwards back to back, each timed by
-  the host clock to a ``torch.cuda.synchronize()``; the best pass, both
-  in ``passes_snippets_per_sec``.
+  canonical_t4 shapes are required), TF32 off, JAX's bf16 recipe as the
+  root bench runs it (``bench.py:127-133``): a bf16 copy of every f32
+  weight, made once before any timing (``models/snipper.py::
+  bf16_params``), and a bf16 uniform input from
+  ``np.random.default_rng(0)``, so that no weight is cast inside a timed
+  forward. One warm-up call (it builds the kernel at first use), then two
+  passes of 15 forwards back to back, each timed by the host clock to a
+  ``torch.cuda.synchronize()``; the best pass, both in
+  ``passes_snippets_per_sec``.
 - ``train_step_ms_T4F2_bf16mp_b2``: canonical_t4_f2 seeded with 1,
-  ``train_step(mixed_precision=True)`` on a synthetic batch of 2 already
-  on the device; one step apart, then two passes of 4 steps, each ending
-  in the read of ``loss_total``; the best pass in ms, both in
-  ``train_step_passes_ms``.
-- ``configs_snippets_per_sec``: light_t1 at batch 4; with
-  ``SNIPPER_BENCH_CONFIGS=all`` the five presets of the root bench at its
-  batches (keys ``<preset>_b<batch>``); 12 calls a pass, the best of 2.
+  ``train_step(mixed_precision=True)`` (the forward on bf16 copies of
+  the f32 masters, made in each step as JAX's loss makes them) on a
+  synthetic batch of 2 already on the device; one step apart, then two
+  passes of 4 steps, each ending in the read of ``loss_total``; the best
+  pass in ms, both in ``train_step_passes_ms``.
+- ``configs_snippets_per_sec``: light_t1 at batch 4, bf16 weights and
+  input as the value leg; with ``SNIPPER_BENCH_CONFIGS=all`` the five
+  presets of the root bench at its batches (keys ``<preset>_b<batch>``);
+  12 calls a pass, the best of 2.
 - ``fast_snippets_per_sec``: canonical_t4 under each ``infer/fast.py``
   profile of ``SNIPPER_BENCH_FAST`` (``|``-separated, default
-  ``"p2,r480"``, ``""`` for none), on the value leg's weights mapped to
-  the profile; 12 calls a pass, the best of 2.
+  ``"p2,r480"``, ``""`` for none), on the value leg's bf16 weights mapped
+  to the profile (the root bench maps its ``params_bf16``), on a bf16
+  input; 12 calls a pass, the best of 2.
 - ``analytic_tflop``: the canonical forward's operations counted by
   shapes (``FlopCounterMode`` over one forward on the meta device, where
   every MSDA call reaches the registered operator and its formula
   ``ops/msda.py::msda_forward_flops``); ``analytic_hbm_gb``: the least
-  bytes one forward moves, the weights, the input and the outputs once
-  each; ``x_hbm_floor``: ms per snippet over the larger of the two bounds
+  bytes one forward moves, the bf16 weights, the bf16 input and the
+  outputs once each; ``x_hbm_floor``: ms per snippet over the larger of
+  the two bounds
   at the H100's published peaks (the note names the bound; null on the
   CPU, where the time is not the card's).
 - ``device``: the card's name and power limit (``nvidia-smi``) and the
@@ -91,19 +97,33 @@ PRESET_BATCHES = {"light_t1": 4, "light_t4": 1, "light_t4_f2": 1,
                   "canonical_t1": 1, "canonical_t4_f2": 1}
 
 
-def forward_bf16(model, x):
-    """The bench's forward: bf16 autocast on the f32 weights."""
-    with torch.inference_mode(), torch.autocast(x.device.type,
-                                                torch.bfloat16):
+def forward(model, x):
+    """The bench's timed forward: ``model`` (bf16 weights, from
+    :func:`bf16_net`) on ``x`` (bf16, from :func:`input_batch`), in
+    inference mode."""
+    with torch.inference_mode():
         return model(x)
 
 
+def bf16_net(cfg, device, state=None):
+    """The model of ``cfg`` seeded with 0 (``state`` loaded over it,
+    strict, when given), then cast once to JAX's bf16 recipe
+    (``models/snipper.py::bf16_model``). ``state`` may hold f32 or bf16
+    tensors."""
+    from snipper_tpu_torch.models.snipper import bf16_model, build_model
+
+    model = build_model(cfg, device=device, seed=0)
+    if state is not None:
+        model.load_state_dict(state)
+    return bf16_model(model)
+
+
 def input_batch(rng, cfg, batch: int, device) -> torch.Tensor:
-    """A uniform ``[batch, T, H, W, 3]`` input of ``cfg`` drawn from
-    ``rng``."""
+    """A uniform ``[batch, T, H, W, 3]`` bf16 input of ``cfg`` drawn from
+    ``rng`` (the root bench's ``jnp.bfloat16`` input)."""
     return torch.from_numpy(rng.uniform(
         0, 1, (batch, cfg.num_frames, cfg.input_height, cfg.input_width, 3)
-    ).astype(np.float32)).to(device)
+    ).astype(np.float32)).to(device, torch.bfloat16)
 
 
 def _sync(device):
@@ -188,22 +208,20 @@ def device_record(device) -> dict:
 
 # ------------------------------------------------------------------ legs
 def value_leg(device, rng) -> dict:
-    """canonical_t4 at batch 1 under bf16 autocast, and the forward's
-    operations and bytes."""
-    from snipper_tpu_torch.models.snipper import build_model
-
+    """canonical_t4 at batch 1 on bf16 weights and a bf16 input, and the
+    forward's operations and bytes."""
     cfg = make_cfg("canonical_t4")
-    model = build_model(cfg, device=device, seed=0)
-    weights = "init(seed 0)"
+    weights, state = "init(seed 0)", None
     path = os.environ.get("SNIPPER_BENCH_PARAMS")
     if path:
         # strict: the checkpoint must have the canonical_t4 shapes
-        model.load_state_dict(load_weights(path, cfg))
+        state = load_weights(path, cfg)
         weights = f"trained({path})"
+    model = bf16_net(cfg, device, state=state)
     x = input_batch(rng, cfg, 1, device)
-    out = forward_bf16(model, x)
+    out = forward(model, x)
     overflow = float(out["sampling_overflow"])
-    passes = passes_per_sec(lambda: forward_bf16(model, x)["pred_logits"],
+    passes = passes_per_sec(lambda: forward(model, x)["pred_logits"],
                             VALUE_K, 1, device)
     flops, _ = forward_flops(cfg)
     nbytes = sum(t.nbytes for t in (*model.parameters(), *model.buffers(),
@@ -245,31 +263,29 @@ def train_leg(device) -> list:
 
 
 def config_leg(preset: str, batch: int, device, rng) -> float:
-    """Best snippets/s of ``preset`` at ``batch`` under bf16 autocast."""
-    from snipper_tpu_torch.models.snipper import build_model
-
+    """Best snippets/s of ``preset`` at ``batch`` on bf16 weights and a
+    bf16 input."""
     cfg = make_cfg(preset)
-    model = build_model(cfg, device=device, seed=0)
+    model = bf16_net(cfg, device)
     x = input_batch(rng, cfg, batch, device)
-    forward_bf16(model, x)
-    return max(passes_per_sec(lambda: forward_bf16(model, x)["pred_logits"],
+    forward(model, x)
+    return max(passes_per_sec(lambda: forward(model, x)["pred_logits"],
                               CONFIG_K, batch, device))
 
 
 def fast_leg(spec: str, base_cfg, state, device, rng) -> float:
     """Best snippets/s of canonical_t4 under the fast profile ``spec``,
-    on ``state`` mapped to the profile, under bf16 autocast."""
+    on ``state`` (the value leg's bf16 weights) mapped to the profile, on
+    a bf16 input."""
     from snipper_tpu_torch.infer.fast import fast_profiles
-    from snipper_tpu_torch.models.snipper import build_model
 
     if state is None:
         raise RuntimeError("no weights: the value leg failed")
     cfg, transform = fast_profiles(base_cfg, spec)
-    model = build_model(cfg, device=device, seed=0)
-    model.load_state_dict(transform(state))
+    model = bf16_net(cfg, device, state=transform(state))
     x = input_batch(rng, cfg, 1, device)
-    forward_bf16(model, x)
-    return max(passes_per_sec(lambda: forward_bf16(model, x)["pred_logits"],
+    forward(model, x)
+    return max(passes_per_sec(lambda: forward(model, x)["pred_logits"],
                               FAST_K, 1, device))
 
 
@@ -290,7 +306,7 @@ def run(device):
     failed)``."""
     rng = np.random.default_rng(0)
 
-    # ---- inference: canonical_t4 b1, bf16 autocast ------------------------
+    # ---- inference: canonical_t4 b1, bf16 weights and input ---------------
     try:
         val = value_leg(device, rng)
         sps = max(val["passes"])
@@ -369,7 +385,7 @@ def _record(device, val, sps, train_ms, train_passes, configs,
             [round(sps / A100_BASELINE_BRACKET[1], 3),
              round(sps / A100_BASELINE_BRACKET[0], 3)] if ok else None),
         "batch_size": 1,
-        "dtype": "bfloat16 autocast (f32 weights)",
+        "dtype": "bfloat16",
         "weights": val["weights"] if ok else None,
         "sampling_impl": ("msda_forward" if device.type == "cuda"
                           else "plain"),

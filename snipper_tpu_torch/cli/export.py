@@ -46,8 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--param_dtype", type=str, default="float32",
                         choices=("float32", "bfloat16"),
                         help="store the weights at this dtype (bfloat16 "
-                             "halves the artifact; the forward computes in "
-                             "f32 on the rounded weights)")
+                             "halves the artifact, which then computes in "
+                             "bf16 on the f32 images cast to bf16)")
     parser.add_argument("--fast", type=str, default=None, help=PROFILE_HELP)
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")

@@ -101,9 +101,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "(data/device_preprocess.py)")
     parser.add_argument("--mixed_precision",
                         action=argparse.BooleanOptionalAction, default=True,
-                        help="bf16 autocast with f32 master weights and "
-                             "losses (default); --no-mixed_precision for "
-                             "full f32")
+                        help="the forward on bf16 copies of the f32 "
+                             "master weights and a bf16 input, losses in "
+                             "f32 (default, JAX's recipe); "
+                             "--no-mixed_precision for full f32")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     return parser

@@ -28,11 +28,16 @@ Differences from the JAX package:
   runs its graph op by op, launching the same kernels as the live model;
   ``jit_call=True`` (the default) runs each call under
   ``torch.inference_mode()``, ``False`` calls the program as it is.
-- ``param_dtype="bfloat16"`` stores the weights in bf16 (half the file)
-  and computes in f32 on the bf16-rounded weights. JAX's bf16-parameter
-  artifact promotes most products to f32 too, but keeps the decoder's
-  query path in bf16 and returns bf16 predictions; the two agree within
-  a few bf16 units of the outputs' scale (``tests/test_torch_port_export.py``).
+- ``param_dtype="bfloat16"`` applies JAX's bf16 recipe once, before the
+  trace (``models/snipper.py::bf16_params``): the artifact holds bf16
+  weights (half the file) and computes in bf16 on the f32 images cast to
+  bf16, so that no weight is widened inside the program. It takes f32
+  images and returns JAX's bf16 artifact's dtypes: bf16 predictions, f32
+  heatmaps. JAX's artifact, given f32 images, lets flax promote each
+  product of an f32 activation and a bf16 weight to f32, so its backbone
+  and encoder run in f32 on its bf16 weights and only the decoder's query
+  path runs in bf16; the two agree within 4 bf16 units of each output's
+  scale at tiny (``tests/test_torch_port_export.py``).
 """
 
 from __future__ import annotations
@@ -67,32 +72,27 @@ def resolve_platform(platforms: Optional[Sequence[str]],
 
 
 class ServingForward(nn.Module):
-    """The model with the artifact's output dict. With ``param_dtype``
-    bfloat16 every f32 weight of the model is held in bf16, as a buffer of
-    the same name, and widened to f32 in the forward."""
+    """The model with the artifact's output dict, on f32 ``images``. With
+    ``param_dtype`` bfloat16 the model's weights are cast to bf16 once,
+    here (in place, by ``models/snipper.py::bf16_model``); the forward
+    casts the images to bf16, runs the model in bf16 and returns the
+    heatmaps in f32, as JAX's bf16 artifact does."""
 
     def __init__(self, model: nn.Module, param_dtype: str = "float32"):
         super().__init__()
-        self.model = model
         self.bf16 = param_dtype == "bfloat16"
         if self.bf16:
-            for name, t in list(model.state_dict(keep_vars=True).items()):
-                mod_name, _, attr = name.rpartition(".")
-                mod = model.get_submodule(mod_name)
-                delattr(mod, attr)
-                mod.register_buffer(
-                    attr, t.detach().to(torch.bfloat16)
-                    if t.dtype == torch.float32 else t.detach())
+            from snipper_tpu_torch.models.snipper import bf16_model
+
+            model = bf16_model(model)
+        self.model = model
 
     def forward(self, images: torch.Tensor) -> Dict:
-        if self.bf16:
-            weights = {n: t.float() if t.dtype == torch.bfloat16 else t
-                       for n, t in self.model.named_buffers()}
-            out = torch.func.functional_call(self.model, weights, (images,))
-        else:
-            out = self.model(images)
+        out = self.model(images.to(torch.bfloat16) if self.bf16 else images)
         res = {k: v for k, v in out.items()
                if k not in DROP and k != "sampling_overflow"}
+        if self.bf16:
+            res["heatmaps"] = [h.float() for h in res["heatmaps"]]
         res["sampling_overflow"] = torch.full(
             (), int(out["sampling_overflow"]), dtype=torch.int32,
             device=images.device)

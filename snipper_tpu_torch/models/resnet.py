@@ -40,8 +40,8 @@ class FrozenBatchNorm(nn.Module):
     def forward(self, x):
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)
         shift = self.bias - self.running_mean * scale
-        # in the activation's dtype: bf16 under autocast, as the JAX
-        # package casts every parameter in mixed precision
+        # in the statistics' dtype, then the activation's: bf16 under the
+        # bf16 recipe (models/snipper.py::bf16_params), as in JAX
         return (x * scale.to(x.dtype)[:, None, None]
                 + shift.to(x.dtype)[:, None, None])
 

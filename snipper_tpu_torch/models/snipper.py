@@ -10,7 +10,7 @@ is a plain walk with transposes.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -174,3 +174,33 @@ def build_model(cfg: Config, device="cuda", seed: int = 0) -> Snipper:
     model.to_empty(device=dev)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.eval()
+
+
+def bf16_params(tensors: Mapping[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+    """The port's one bf16 recipe, the counterpart of JAX's ``bf16_params``
+    (``scripts/probe.py:89-94``; the same cast in ``bench.py:127-129``,
+    ``snipper_tpu/train/step.py:91-94`` and ``cli/export.py:82-87``):
+    every f32 tensor of ``tensors`` (a state dict, or a module's parameters
+    and buffers) cast to bf16, every other as it is.
+
+    The port's state dict holds exactly the leaves of JAX's ``params``
+    tree, under ``convert.state_dict_from_jax``'s names: the frozen-BN
+    statistics are parameters there (``snipper_tpu/models/resnet.py:
+    38-41``) and buffers here, and both recipes cast them. The cast keeps
+    autograd: the gradient of a bf16 copy reaches its f32 master."""
+    return {k: t.to(torch.bfloat16) if t.dtype == torch.float32 else t
+            for k, t in tensors.items()}
+
+
+def bf16_model(model: nn.Module) -> nn.Module:
+    """``model`` with its weights replaced, in place, by their
+    :func:`bf16_params` copies (made once; the forward then runs in bf16
+    on a bf16 input, as JAX's ``apply`` on ``bf16_params``). Returns
+    ``model``."""
+    state = model.state_dict(keep_vars=True)
+    with torch.no_grad():
+        for name, t in bf16_params(state).items():
+            if t is not state[name]:
+                state[name].data = t
+    return model

@@ -153,10 +153,14 @@ class TorchMultiheadAttention(nn.Module):
                                                             H, D)
         vh = F.linear(v_in, w[2 * C:], b[2 * C:]).reshape(*v.shape[:-1], H,
                                                           D)
-        logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / math.sqrt(D)
+        # f32 logits and softmax on bf16 q and k, then bf16 probabilities,
+        # as JAX's preferred_element_type=f32 and astype(vh.dtype)
+        # (transformer.py:163-170); in f32 the casts are no-ops
+        logits = torch.einsum("bqhd,bkhd->bhqk", qh.float(),
+                              kh.float()) / math.sqrt(D)
         probs = dropout_shard(torch.softmax(logits, dim=-1), self.dropout,
                               self.training, 1, self.mesh)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs, vh)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs.to(vh.dtype), vh)
         return row_parallel(self.out_proj, out.reshape(*q.shape[:-1], C),
                             self.mesh)
 

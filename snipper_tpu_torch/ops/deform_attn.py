@@ -38,8 +38,10 @@ from snipper_tpu_torch.ops.msda import ms_deform_attn
 _DEVICE_CONSTANTS = {}
 
 
-def device_constant(values, like: torch.Tensor) -> torch.Tensor:
-    """A small f32 host constant on ``like``'s device. On a CUDA device it
+def device_constant(values, like: torch.Tensor,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A small host constant in ``dtype`` on ``like``'s device. On a CUDA
+    device it
     is copied once, from pinned memory without blocking (a copy from
     pageable memory would wait for the stream to drain), and kept: later
     calls with the same values reuse it, and ``torch.export`` takes the
@@ -50,16 +52,16 @@ def device_constant(values, like: torch.Tensor) -> torch.Tensor:
     tensors per input resolution."""
     values = np.asarray(values, np.float32)
     if like.device.type != "cuda":
-        return torch.as_tensor(values, device=like.device)
-    key = (values.tobytes(), values.shape, like.device)
+        return torch.as_tensor(values, device=like.device).to(dtype)
+    key = (values.tobytes(), values.shape, like.device, dtype)
     t = _DEVICE_CONSTANTS.get(key)
     if t is None:
         if torch.compiler.is_compiling():
             # not seen eagerly first: a constant copied at each run
-            return torch.as_tensor(values, device=like.device)
+            return torch.as_tensor(values, device=like.device).to(dtype)
         with torch.inference_mode(False):
-            t = torch.as_tensor(values).pin_memory().to(like.device,
-                                                        non_blocking=True)
+            t = torch.as_tensor(values).to(dtype).pin_memory().to(
+                like.device, non_blocking=True)
         _DEVICE_CONSTANTS[key] = t
     return t
 
@@ -109,18 +111,21 @@ def temporal_deform_sample(
     the sampling is an exact gather with no window that could drop taps.
 
     Gradients flow to all three inputs, through the softmax, the division
-    by the frame count and the neighbour-frame sum. The softmax, the
-    locations and the weights are f32 whatever the activation dtype (under
-    autocast too): the kernels take only f32 ``loc``/``attn``; ``value``
-    keeps its dtype (f32, or bf16 under autocast).
+    by the frame count and the neighbour-frame sum. The softmax and the
+    division run in the logits' dtype, as JAX's (``deform_attn.py:
+    1262-1266``): bf16 weights under the bf16 recipe. The sampling then
+    takes ``loc`` and ``attn`` widened to f32, which is exact and is what
+    JAX's exact sampling does with them (``deform_attn.py:130-145``); the
+    kernels take only f32 ``loc``/``attn``, and autograd narrows their
+    f32 gradients back to the inputs' dtypes. ``value`` keeps its dtype.
     """
     B, T1, Lq, nH, L, P = attention_logits.shape
     _, T2, S, _, D = value.shape
 
-    attn = torch.softmax(
-        attention_logits.float().reshape(B, T1, Lq, nH, L * P), -1)
+    attn = torch.softmax(attention_logits.reshape(B, T1, Lq, nH, L * P), -1)
     counts = np.asarray(adjacency).sum(axis=1)            # [T1] static
-    attn = attn / device_constant(counts, attn)[None, :, None, None, None]
+    attn = attn / device_constant(counts, attn, attn.dtype)[
+        None, :, None, None, None]
     attn = attn.reshape(B, T1, Lq, nH, L, P)
 
     # static unrolled adds over the tiny frame axis, in the JAX order
@@ -138,7 +143,7 @@ def temporal_deform_sample(
         v_agg.reshape(B * T1, S, nH, D), spatial_shapes,
         sampling_locations.float().reshape(B * T1, Lq, nH, L, P, 2)
         .contiguous(),
-        attn.reshape(B * T1, Lq, nH, L, P).contiguous())
+        attn.float().reshape(B * T1, Lq, nH, L, P).contiguous())
     return out.reshape(B, T1, Lq, nH * D), 0
 
 

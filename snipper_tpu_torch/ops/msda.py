@@ -57,23 +57,22 @@ def ms_deform_attn_torch(value: torch.Tensor,
       attn: ``[N, Lq, H, L, P]``.
 
     Returns ``[N, Lq, H * D]`` in the value's dtype, summed in f32 (in f64
-    for an f64 value), also under autocast.
+    for an f64 value).
     """
     N, S, H, D = value.shape
     _, Lq, _, L, P, _ = loc.shape
     cdt = torch.promote_types(value.dtype, torch.float32)
-    with torch.autocast(value.device.type, enabled=False):
-        vals = value.to(cdt).split([h * w for h, w in spatial_shapes], dim=1)
-        out = torch.zeros(N, Lq, H, D, dtype=cdt, device=value.device)
-        for lvl, (h, w) in enumerate(spatial_shapes):
-            v = vals[lvl].permute(0, 2, 3, 1).reshape(N * H, D, h, w)
-            g = 2 * loc[:, :, :, lvl].to(cdt) - 1               # [N,Lq,H,P,2]
-            g = g.permute(0, 2, 1, 3, 4).reshape(N * H, Lq, P, 2)
-            s = F.grid_sample(v, g, mode="bilinear", padding_mode="zeros",
-                              align_corners=False)             # [NH,D,Lq,P]
-            s = s.reshape(N, H, D, Lq, P)
-            a = attn[:, :, :, lvl].to(cdt).permute(0, 2, 1, 3)  # [N,H,Lq,P]
-            out = out + torch.einsum("nhdqp,nhqp->nqhd", s, a)
+    vals = value.to(cdt).split([h * w for h, w in spatial_shapes], dim=1)
+    out = torch.zeros(N, Lq, H, D, dtype=cdt, device=value.device)
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        v = vals[lvl].permute(0, 2, 3, 1).reshape(N * H, D, h, w)
+        g = 2 * loc[:, :, :, lvl].to(cdt) - 1                   # [N,Lq,H,P,2]
+        g = g.permute(0, 2, 1, 3, 4).reshape(N * H, Lq, P, 2)
+        s = F.grid_sample(v, g, mode="bilinear", padding_mode="zeros",
+                          align_corners=False)                 # [NH,D,Lq,P]
+        s = s.reshape(N, H, D, Lq, P)
+        a = attn[:, :, :, lvl].to(cdt).permute(0, 2, 1, 3)      # [N,H,Lq,P]
+        out = out + torch.einsum("nhdqp,nhqp->nqhd", s, a)
     return out.reshape(N, Lq, H * D).to(value.dtype)
 
 

@@ -39,21 +39,25 @@ CPU, the host clock). Like the JAX probe, an impl that raises prints a
 ``DONE``. ``--device`` is ``cuda`` unless the CPU is asked for, and the
 probe raises without a card.
 
-``serve`` exports the preset's forward (``infer/export.py``), loads the
-artifact back and times it against the live model, in ms per snippet and
-as a ratio, with the artifact's size and the weights' dtype. ``fast``
-seeds one model, maps its one state dict to each profile of ``--specs``
-(``infer/fast.py``) and prints each profile's snippets/s beside the
-base's; a spec that raises prints ``FAIL`` and the probe exits non-zero
-after ``DONE``. Both run the forward in f32, as ``cli.infer`` does.
+``serve`` exports the preset's forward on bf16 weights (``infer/export.py``
+with ``param_dtype="bfloat16"``, JAX's ``bf16_params``), loads the
+artifact back and times it against the same forward run live, both on an
+f32 input, as the JAX probe's ``serve`` does (``scripts/probe.py:
+355-358``); it prints ms per snippet and their ratio, with the artifact's
+size. ``fast`` seeds one model, casts its one state dict to bf16, maps it
+to each profile of ``--specs`` (``infer/fast.py``) and prints each
+profile's snippets/s on a bf16 input beside the base's, as the JAX
+probe's ``fast`` (``:454-466``); a spec that raises prints ``FAIL`` and
+the probe exits non-zero after ``DONE``.
 
 ``forward`` seeds each preset's model and a uniform input per batch and
 prints the JAX probe's line (ms/snippet, snippets/s, overflow, shapes),
 with ``impl=`` what ran: ``kernel`` (the ``msda_forward`` kernel),
 ``plain`` (the plain MSDA on the CPU) or ``skip`` (``--impl skip``: no
-sampling). ``--dtype bf16`` is the forward under bf16 autocast on f32
-weights (the port's mixed precision, as in training; the JAX probe casts
-its weights to bf16), ``f32`` the forward in f32; TF32 is off for both.
+sampling). ``--dtype bf16`` is JAX's bf16 recipe, as in the JAX probe
+(``scripts/probe.py:121-127``): the model's weights cast to bf16 once by
+``models/snipper.py::bf16_params`` and a bf16 input; ``f32`` the forward
+in f32; TF32 is off for both.
 A preset that raises prints ``FAIL`` and the probe exits non-zero after
 ``DONE``. ``train`` builds the trainer's state and steps it over one
 synthetic batch already on the device: the first step is timed apart
@@ -62,7 +66,8 @@ of the last loss; ``--profile_dir`` traces those K steps and prints the
 top device ops (the line then says ``(traced)``). ``--impls`` and
 ``--remat`` go into the config as in the JAX probe: every impl but
 ``skip`` runs the exact kernel, and the port has no rematerialization.
-``split`` times the bf16-autocast forward with ``deform_impl="skip"`` at
+``split`` times the bf16 forward (bf16 weights and input, the JAX
+probe's ``:323-327``) with ``deform_impl="skip"`` at
 (enc, dec) in {(6,6), (2,6), (6,2), (1,1)} and solves
 ``t = c0 + e*ce + d*cd`` by least squares.
 
@@ -179,11 +184,11 @@ def _ran(cfg, device) -> str:
 def cmd_forward(args) -> int:
     """Per-preset inference throughput over batch sizes; returns the number
     of (preset, batch) points that failed."""
-    from snipper_tpu_torch.models.snipper import resolve_device
+    from snipper_tpu_torch.models.snipper import bf16_model, resolve_device
 
     device = resolve_device(args.device)
     bf16 = args.dtype == "bf16"
-    note = "bf16 autocast, f32 weights" if bf16 else "f32"
+    note = "bf16 weights and input" if bf16 else "f32"
     rng = np.random.default_rng(0)
     failed = 0
     with tf32_off():
@@ -196,14 +201,11 @@ def cmd_forward(args) -> int:
                         0, 1, (batch, cfg.num_frames, cfg.input_height,
                                cfg.input_width, 3)).astype(np.float32)
                     ).to(device)
-
-                    def fwd(xx, model=model):
-                        with torch.autocast(device.type, torch.bfloat16,
-                                            enabled=bf16):
-                            return model(xx)
-
-                    ovf = float(fwd(x)["sampling_overflow"])
-                    ms = time_fn(lambda xx: fwd(xx)["pred_logits"], x,
+                    if bf16:
+                        bf16_model(model)
+                        x = x.to(torch.bfloat16)
+                    ovf = float(model(x)["sampling_overflow"])
+                    ms = time_fn(lambda xx: model(xx)["pred_logits"], x,
                                  K=args.K)
                     del model
                     per = ms / batch
@@ -293,9 +295,10 @@ def cmd_train(args) -> int:
 
 def cmd_split(args) -> int:
     """The forward without the sampling (``deform_impl="skip"``, bf16
-    autocast) at four (enc, dec) depths, and the least-squares split
-    ``t = c0 + e*ce + d*cd``; returns 0 (a point that fails raises)."""
-    from snipper_tpu_torch.models.snipper import resolve_device
+    weights and input) at four (enc, dec) depths, and the least-squares
+    split ``t = c0 + e*ce + d*cd``; returns 0 (a point that fails
+    raises)."""
+    from snipper_tpu_torch.models.snipper import bf16_model, resolve_device
 
     device = resolve_device(args.device)
     rng = np.random.default_rng(0)
@@ -304,16 +307,12 @@ def cmd_split(args) -> int:
         for e, d in ((6, 6), (2, 6), (6, 2), (1, 1)):
             cfg = make_cfg(args.preset, deform_impl="skip", enc_layers=e,
                            dec_layers=d)
-            model = _seeded_state(cfg, device)
+            model = bf16_model(_seeded_state(cfg, device))
             x = torch.from_numpy(rng.uniform(
                 0, 1, (1, cfg.num_frames, cfg.input_height,
-                       cfg.input_width, 3)).astype(np.float32)).to(device)
-
-            def fwd(xx, model=model):
-                with torch.autocast(device.type, torch.bfloat16):
-                    return model(xx)["pred_logits"]
-
-            ms = time_fn(fwd, x, K=args.K)
+                       cfg.input_width, 3)).astype(np.float32)).to(
+                           device, torch.bfloat16)
+            ms = time_fn(lambda xx: model(xx)["pred_logits"], x, K=args.K)
             del model
             pts.append((e, d, ms))
             print(f"enc={e} dec={d}: {ms:7.2f} ms", flush=True)
@@ -417,11 +416,10 @@ def cmd_lanegather(args) -> int:
     return lanegather_probe.run(K=args.K, device=resolve_device(args.device))
 
 
-def _seeded_state(cfg, device, param_dtype="float32"):
+def _seeded_state(cfg, device):
     """A model of ``cfg`` seeded with 0 on ``device``, its sampling
     projections' weights drawn at random so that queries sample different
-    places; with bfloat16 every f32 weight is rounded to bf16 (and kept
-    f32, as the bf16 artifact computes)."""
+    places."""
     from snipper_tpu_torch.models.snipper import build_model
 
     model = build_model(cfg, device=device, seed=0)
@@ -431,8 +429,6 @@ def _seeded_state(cfg, device, param_dtype="float32"):
             if name.endswith(("sampling_offsets.weight",
                               "attention_weights.weight")):
                 p.copy_(torch.randn(p.shape, generator=g) * 0.05)
-            if param_dtype == "bfloat16":
-                p.copy_(p.to(torch.bfloat16).float())
     return model
 
 
@@ -442,24 +438,26 @@ def _impl(device) -> str:
 
 
 def cmd_serve(args) -> int:
-    """The exported artifact against the live forward: the artifact's size,
-    then ms per snippet of each, timed in turns (live, artifact, artifact,
-    live, twice; the median of each), and their ratio; returns 0."""
+    """The exported artifact against the live forward, both on bf16
+    weights and an f32 input: the artifact's size, then ms per snippet of
+    each, timed in turns (live, artifact, artifact, live, twice; the
+    median of each), and their ratio; returns 0."""
     import os
     import statistics
     import tempfile
 
     from snipper_tpu_torch.config import Config
-    from snipper_tpu_torch.infer.export import (export_forward,
+    from snipper_tpu_torch.infer.export import (ServingForward,
+                                                export_forward,
                                                 load_exported, save_exported)
     from snipper_tpu_torch.models.snipper import resolve_device
 
     device = resolve_device(args.device)
     cfg = getattr(Config, args.preset)()
-    dt = args.param_dtype
+    dt = "bfloat16"
     print(f"serving artifact probe on {device}: {args.preset}, {dt} "
-          f"weights, f32 forward, batch 1", flush=True)
-    model = _seeded_state(cfg, device, dt)
+          f"weights, f32 input, batch 1", flush=True)
+    model = _seeded_state(cfg, device)
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.uniform(
         0, 1, (1, cfg.num_frames, cfg.input_height, cfg.input_width, 3)
@@ -475,10 +473,12 @@ def cmd_serve(args) -> int:
               f"ops, {sum('msda_forward' in t for t in ops)} msda_forward",
               flush=True)
         run = load_exported(path)
+    # the artifact's forward, run live: the same weights cast to bf16 once
+    serving = ServingForward(model, dt).eval()
 
     def live(xx):
         with torch.inference_mode():
-            return model(xx)["pred_logits"]
+            return serving(xx)["pred_logits"]
 
     times = {live: [], run: []}
     for _ in range(2):
@@ -495,18 +495,21 @@ def cmd_serve(args) -> int:
 
 
 def cmd_fast(args) -> int:
-    """Serving-profile throughput: one seeded state dict mapped to each
-    profile of ``--specs`` and timed through the model; returns the number
-    of specs that failed."""
+    """Serving-profile throughput: one seeded state dict cast to bf16
+    (``bf16_params``), mapped to each profile of ``--specs`` and timed
+    through the model on a bf16 input; returns the number of specs that
+    failed."""
     from snipper_tpu_torch.config import Config
     from snipper_tpu_torch.infer.fast import fast_profiles
-    from snipper_tpu_torch.models.snipper import build_model, resolve_device
+    from snipper_tpu_torch.models.snipper import (bf16_model, bf16_params,
+                                                  build_model,
+                                                  resolve_device)
 
     device = resolve_device(args.device)
     base = getattr(Config, args.preset)()
-    print(f"fast-profile probe on {device}: {args.preset}, f32 forward, "
-          f"batch {args.batch}", flush=True)
-    full = _seeded_state(base, device).state_dict()
+    print(f"fast-profile probe on {device}: {args.preset}, bf16 weights "
+          f"and input, batch {args.batch}", flush=True)
+    full = bf16_params(_seeded_state(base, device).state_dict())
     rng = np.random.default_rng(0)
     base_sps, failed = None, 0
     for spec in args.specs.split("|"):
@@ -517,11 +520,12 @@ def cmd_fast(args) -> int:
             else:
                 cfg, transform = fast_profiles(base, spec)
                 state, label = transform(full), spec
-            model = build_model(cfg, device=device, seed=0)
+            model = bf16_model(build_model(cfg, device=device, seed=0))
             model.load_state_dict(state)
             x = torch.from_numpy(rng.uniform(
                 0, 1, (args.batch, cfg.num_frames, cfg.input_height,
-                       cfg.input_width, 3)).astype(np.float32)).to(device)
+                       cfg.input_width, 3)).astype(np.float32)).to(
+                           device, torch.bfloat16)
             with torch.inference_mode():
                 ms = time_fn(lambda xx: model(xx)["pred_logits"], x,
                              K=args.K)
@@ -530,7 +534,7 @@ def cmd_fast(args) -> int:
             if label == "base":
                 base_sps = sps
             rel = f"  {sps / base_sps:.2f}x base" if base_sps else ""
-            print(f"{label:16s}: {sps:6.2f} snippets/s  [{_impl(device)} f32 "
+            print(f"{label:16s}: {sps:6.2f} snippets/s  [{_impl(device)} bf16 "
                   f"{cfg.input_height}x{cfg.input_width} enc{cfg.enc_layers} "
                   f"P={cfg.enc_n_points}/{cfg.dec_n_points}]{rel}",
                   flush=True)
@@ -678,8 +682,6 @@ def main(argv=None) -> int:
 
     sv = sub.add_parser("serve")
     sv.add_argument("--preset", default="canonical_t4")
-    sv.add_argument("--param_dtype", default="float32",
-                    choices=("float32", "bfloat16"))
     sv.add_argument("-K", type=int, default=10)
     sv.add_argument("--device", default="cuda")
     sv.set_defaults(fn=cmd_serve, inference=False)

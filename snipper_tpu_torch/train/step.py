@@ -1,9 +1,11 @@
 """Train and eval steps.
 
 Counterpart of ``snipper_tpu/train/step.py:28-152,184-221``. One train step
-is: forward in ``module.train()`` (bf16 ``torch.autocast`` with mixed
-precision, the JAX CLI's default; f32 master weights), the criterion
-outside autocast in f32, backward, the global-norm clip written as optax
+is: forward in ``module.train()`` (with mixed precision, the JAX CLI's
+default, JAX's bf16 recipe: the network runs on bf16 copies of the f32
+master weights and on bf16 images, and the gradients reach the masters
+through the casts), the criterion in f32, backward, the global-norm clip
+written as optax
 writes it (``g / norm * max_norm`` when ``norm >= max_norm``;
 ``clip_grad_norm_`` adds 1e-6 and would not match), then AdamW. With
 ``grad_accum_steps = k`` the k microbatch gradients are averaged (a
@@ -36,6 +38,7 @@ import torch.distributed as dist
 
 from snipper_tpu_torch.data.device_preprocess import warp_train_batch_device
 from snipper_tpu_torch.losses.criterion import SetCriterion
+from snipper_tpu_torch.models.snipper import bf16_params
 from snipper_tpu_torch.train.state import TrainState
 
 
@@ -66,18 +69,26 @@ def batch_to_device(batch: Dict, device: torch.device) -> Dict:
 def forward_loss(model, criterion: SetCriterion, batch: Dict,
                  mixed_precision: bool):
     """``(total, losses, outputs, src_idx)`` of one batch on the model's
-    current mode; the network under bf16 autocast when
-    ``mixed_precision``, the criterion in f32 outside it. A batch of raw
-    frames is warped first, in f32 outside autocast, so only the model
-    sees bf16."""
+    current mode. With ``mixed_precision`` the network runs through
+    ``torch.func.functional_call`` on ``bf16_params`` copies of its
+    parameters and buffers and on the images cast to bf16, as JAX's loss
+    casts ``params`` and the images inside the step (``snipper_tpu/train/
+    step.py:91-95``); the casts are in the autograd graph, so the f32
+    masters receive f32 gradients. A batch of raw frames is warped first,
+    in f32, so only the model sees bf16. The criterion casts what it reads
+    to f32 (``losses/criterion.py``), as JAX's does."""
     if "raw_images" in batch:  # JAX train/step.py:77-89
         images = warp_train_batch_device(
             batch["raw_images"], batch["warp_inv"], batch["color_scale"],
             criterion.cfg.input_shape)
     else:
         images = batch["images"]
-    with torch.autocast(images.device.type, dtype=torch.bfloat16,
-                        enabled=mixed_precision):
+    if mixed_precision:
+        weights = bf16_params({**dict(model.named_parameters()),
+                               **dict(model.named_buffers())})
+        out = torch.func.functional_call(
+            model, weights, (images.to(torch.bfloat16), batch.get("mask")))
+    else:
         out = model(images, batch.get("mask"))
     total, losses, src_idx = criterion(out, batch["targets"],
                                        num_traj=batch.get("num_traj"))

@@ -224,10 +224,11 @@ def test_cli_refuses_a_bad_profile(tmp_path, capsys):
 
 
 def test_probe_fast_lines_and_fail(capsys, monkeypatch):
-    """``probe fast`` on tiny on the CPU: one init, JAX's line per spec
-    with the port's impl, a FAIL line for a spec that raises and exit 1
-    after DONE; the header names the device and quotes no TPU figure. The
-    timer is a stand-in that runs each forward once."""
+    """``probe fast`` on tiny on the CPU: one init cast to bf16 and a bf16
+    input, as JAX's ``fast`` (``scripts/probe.py:454-466``), JAX's line
+    per spec with the port's impl, a FAIL line for a spec that raises and
+    exit 1 after DONE; the header names the device and quotes no TPU
+    figure. The timer is a stand-in that runs each forward once."""
     from snipper_tpu_torch.scripts import probe
 
     monkeypatch.setattr(probe, "time_fn", lambda fn, x, **kw: (fn(x), 50.0)[1])
@@ -236,12 +237,12 @@ def test_probe_fast_lines_and_fail(capsys, monkeypatch):
                      "1", "--specs", "base|m3|p2|p3,p2"])
     out = capsys.readouterr().out
     lines = out.splitlines()
-    assert lines[0] == ("fast-profile probe on cpu: tiny, f32 forward, "
-                        "batch 1")
+    assert lines[0] == ("fast-profile probe on cpu: tiny, bf16 weights and "
+                        "input, batch 1")
     assert rc == 1 and lines[-1] == "DONE"
     assert lines[1].startswith("base            : ")
     assert lines[1].endswith(
-        ":  20.00 snippets/s  [ms_deform_attn_torch f32 64x96 enc1 P=4/4]"
+        ":  20.00 snippets/s  [ms_deform_attn_torch bf16 64x96 enc1 P=4/4]"
         "  1.00x base")
     assert lines[3].startswith("p2") and "P=2/2]" in lines[3]
     assert [ln for ln in lines if "FAIL" in ln] == [

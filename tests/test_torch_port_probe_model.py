@@ -134,11 +134,17 @@ def test_probe_forward_on_cpu(capsys):
 
 
 def test_probe_forward_skip_and_bf16(capsys):
+    """``--dtype bf16`` (the default) runs JAX's bf16 recipe, bf16
+    weights and a bf16 input, and says so on its line; the bf16 forward
+    itself is held to JAX's in tests/test_torch_port_bench.py within 4
+    bf16 units, as JAX's own jitted and op-by-op bf16 forwards differ by
+    up to 1.91."""
     assert probe.main(["forward", "--presets", "tiny", "--impl", "skip",
                        "--device", "cpu", "-K", "1"]) == 0
     line = capsys.readouterr().out.splitlines()[0]
     m = FORWARD_LINE.match(line)
-    assert m and m.group(12) == "skip" and "bf16 autocast" in line, line
+    assert m and m.group(12) == "skip" and "bf16 weights and input" in line, \
+        line
 
 
 def test_probe_forward_failing_preset_exits_nonzero(capsys):

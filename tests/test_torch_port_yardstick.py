@@ -1,8 +1,9 @@
 """``chip_smoke.py``'s library yardstick on the CPU: the arguments it builds
 for one ``torch.nn.functional.embedding_bag(..., mode="sum")`` call
 reproduce the plain versions of K5 (``win2d_contract_torch``), K4
-(``hier_gather_torch``, up to the transpose) and K2
-(``win2d_sample_torch`` over an op call's query segments) at tiny
+(``hier_gather_torch``, up to the transpose), K2 (``win2d_sample_torch``
+over an op call's query segments) and K1 (``ms_deform_attn_torch``, and
+through the call's backward the plain VJP's d_value and d_attn) at tiny
 fixtures. The port itself never calls ``embedding_bag``
 (``test_torch_port_isolation.py``). This file imports nothing of JAX.
 """
@@ -19,6 +20,8 @@ import torch
 from snipper_tpu_torch.ops import win2d
 from snipper_tpu_torch.ops.deform_attn import (ms_deform_attn_windowed2d,
                                                windowed2d_plan)
+from snipper_tpu_torch.ops.msda import (ms_deform_attn_torch,
+                                        ms_deform_attn_torch_vjp)
 from snipper_tpu_torch.scripts.lanegather_probe import _fixture
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -132,3 +135,48 @@ def test_sample_bag_args_reproduce_k2(value_dtype, teleport):
     tol = 1e-5 if value_dtype == torch.float32 else 2.0 ** -7 * scale
     for ref in (want, op):
         assert (lib.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("value_dtype", [torch.float32, torch.bfloat16])
+def test_msda_bag_args_reproduce_k1(value_dtype):
+    """One embedding_bag call over the value's rows, a bag of the L*P*4
+    corner taps of each (n, q, h) with the corners off the map at weight
+    0, gives ``ms_deform_attn_torch``: f32 within 1e-5; bf16 rows and
+    weights (as chip_smoke.py times it) within 1e-2 of the largest output,
+    its bf16 bar. The call's backward gives the plain VJP's d_value and,
+    through the corner weights, its d_attn, within 1e-5 of each
+    gradient's scale in f32 and 1e-2 in bf16."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(7)
+    N, H, D, P, Lq, L = 2, 2, 8, 3, 11, len(SHAPES)
+    S = sum(h * w for h, w in SHAPES)
+    value = torch.from_numpy(rng.standard_normal((N, S, H, D)).astype(
+        np.float32)).to(value_dtype)
+    # locations in [-0.1, 1.1]: some corners fall off the map
+    loc = torch.from_numpy(rng.uniform(-0.1, 1.1, (N, Lq, H, L, P, 2))
+                           .astype(np.float32))
+    attn = torch.softmax(torch.from_numpy(rng.standard_normal(
+        (N, Lq, H, L * P)).astype(np.float32)), -1).view(N, Lq, H, L, P)
+    want = ms_deform_attn_torch(value, SHAPES, loc, attn)
+    table, bags, wts = cs.msda_bag_args(value, SHAPES, loc, attn)
+    assert bags.dtype == torch.int32 and bags.shape == (N * Lq * H,
+                                                        L * P * 4)
+    assert bool((wts == 0).any())
+    bf16 = value_dtype == torch.bfloat16
+    rel = 1e-2 if bf16 else 1e-5
+    tbl = table.detach().requires_grad_(True)
+    w = wts.to(value_dtype).detach().requires_grad_(True)
+    lib = cs.library_bag(tbl, bags, w).view(want.shape)
+    assert lib.dtype == value_dtype
+    scale = max(1.0, want.float().abs().max().item())
+    assert (lib.float() - want.float()).abs().max().item() <= rel * scale
+
+    grad_out = torch.from_numpy(rng.standard_normal((N, Lq, H * D)).astype(
+        np.float32)).to(value_dtype)
+    d_value, _, d_attn = ms_deform_attn_torch_vjp(value, SHAPES, loc, attn,
+                                                  grad_out)
+    d_tbl, d_w = torch.autograd.grad(lib, (tbl, w), grad_out)
+    for got, ref in ((d_tbl.view(value.shape), d_value),
+                     (cs.msda_bag_attn_grad(d_w, SHAPES, loc), d_attn)):
+        scale = max(1.0, ref.float().abs().max().item())
+        assert (got.float() - ref.float()).abs().max().item() <= rel * scale
