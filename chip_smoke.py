@@ -36,8 +36,9 @@ result):
    enc4,p2,r480 --device_preprocess`` (counts at 0 just before, read just
    after: 10 launches per snippet; snippets/s; the profile's forward
    against the same forward with the plain MSDA), ``probe fast`` with its
-   default specs (exit 0, no FAIL), the f32 canonical_t4 export on the
-   card saved and loaded in a subprocess that imports only torch and the
+   default specs (exit 0, no FAIL), the f32 canonical_t4 export (cut to
+   two encoder and two decoder layers at full width) on the card saved
+   and loaded in a subprocess that imports only torch and the
    MSDA operators (12 launches per call, the live model's outputs within
    1e-5), the bf16 export (JAX's bf16 recipe: bf16 weights only, about
    half the size, 12 launches per call, the live bf16 forward's outputs
@@ -68,9 +69,10 @@ result):
    tests/test_train_accuracy.py at tiny (the random-init floor, 400
    updates of 8 over 8 fixed synthetic samples with the StepLR drop at
    epoch 10, the checkpoint's eval), held to that test's bars; (b)
-   canonical_t4_f2 at full width and depth, 1600 updates of 2 over 8 fixed
-   samples, held to a halved loss, a halved pel-MPJPE and a 3DPCK 0.2 over
-   the floor's, with JAX's bars reported; per leg the stats, the loss at
+   canonical_t4_f2 at full width cut to two encoder and two decoder
+   layers, 1600 updates of 2 over 8 fixed samples, held to a halved
+   loss, a halved pel-MPJPE and a 3DPCK 0.2 over the floor's, with JAX's
+   bars reported; per leg the stats, the loss at
    updates 1, 100, 200, 300, 400 (and 800, 1200, 1600), ms per update,
    peak memory, seconds.
    Then training and eval from reference-format files: a PoseTrack18-format
@@ -95,19 +97,29 @@ result):
    ``torch_outputs.npz`` against the live forward (1e-5), and its
    ``cli.eval`` leg on the PoseTrack18-format set (finite stats).
    Then the multi-GPU paths on this one card (right, not scaling): an f32
-   canonical_t4_f2 step (dropout 0, TF32 off) on two gloo ranks of
-   cuda:0, data-parallel (batch 1 a rank) and tensor-parallel (4 heads a
-   rank), each against one process's batch-2 step on the same weights
-   (loss, every gradient, the matching; 12 launches of each MSDA kernel
-   per rank and step, counts at 0 just before and read just after), with
-   each rank's step time and the gradient all-reduce's time;
-   ``cli.train`` (3 bf16 steps and a checkpoint) and ``cli.infer
+   canonical_t4_f2 step cut to two encoder and two decoder layers at full
+   width (dropout 0, TF32 off) on two gloo ranks of cuda:0,
+   data-parallel (batch 1 a rank) and tensor-parallel (4 heads a rank),
+   each against one process's batch-2 step on the same weights (loss,
+   every gradient, the matching; 4 launches of each MSDA kernel and one
+   ``lsa_rows`` per rank and step, counts at 0 just before and read just
+   after), with each rank's step time and the gradient all-reduce's time;
+   ``cli.train`` (3 bf16 steps at that depth and a checkpoint) and
+   ``cli.infer
    --data_parallel`` through ``torchrun --standalone --nproc_per_node 1``
    (NCCL), the tracks against the first serving run's; ``cli.infer``'s
    serving function on two gloo ranks of cuda:0, the same tracks; ``probe
    meshscale`` (exit 0, no FAIL).
 6. Hold one f32 train step (dropout 0) with the kernels against the same
-   step with the plain MSDA forward and VJP on the card, TF32 off.
+   step with the plain MSDA forward and VJP and the plain assignment on
+   the card, TF32 off: loss, gradients and every decoder layer's
+   matching. Then the assignment kernel ``lsa_rows`` (JAX's
+   Jonker-Volgenant solver) against its plain version on every slot of
+   tied, continuous and edge-shape fixtures and of a real canonical_t4_f2
+   b2 bf16 step's 12 problems, timed beside its bound, the plain version
+   and the host scipy route; that step (forward, criterion, backward,
+   update) runs under ``torch.cuda.set_sync_debug_mode("error")`` with
+   one ``lsa_rows`` launch, its loss read after it.
 7. Hold the sampling probes' kernels against their plain versions on the
    card, TF32 off, at a tiny shape and at the JAX probe's full shapes:
    ``win2d_sample`` against the plain windowed2d (f32 and bf16 value at
@@ -231,6 +243,27 @@ def check(cond, msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+def zero_counts():
+    """Set the launch count of every kernel a training or eval path runs
+    to 0: the two MSDA kernels and the assignment."""
+    from snipper_tpu_torch.ops.lsa import lsa_rows
+    from snipper_tpu_torch.ops.msda import ms_deform_attn
+
+    ms_deform_attn.launches = 0
+    ms_deform_attn.backward_launches = 0
+    lsa_rows.launches = 0
+
+
+def counts():
+    """The launch counts that :func:`zero_counts` set to 0."""
+    from snipper_tpu_torch.ops.lsa import lsa_rows
+    from snipper_tpu_torch.ops.msda import ms_deform_attn
+
+    return {"msda_forward": ms_deform_attn.launches,
+            "msda_backward": ms_deform_attn.backward_launches,
+            "lsa_rows": lsa_rows.launches}
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -1123,27 +1156,27 @@ def probe_model_runs(K=8, train_K=2, split_K=3):
     ``main``, each with the MSDA counts at 0 just before and read just
     after: one ``msda_forward`` launch per layer and forward call (the
     forward: the overflow read, the warm-up and 2 x K timed calls per
-    point), 12 forward and 12 backward launches per train step (the first
-    step and K), none under ``deform_impl="skip"``."""
+    point), 12 forward and 12 backward launches and one ``lsa_rows`` per
+    train step (the first step and K), none under
+    ``deform_impl="skip"``."""
     from snipper_tpu_torch.config import Config
-    from snipper_tpu_torch.ops.msda import ms_deform_attn
 
     def run(argv):
         log(f"probe {' '.join(argv)}:")
-        ms_deform_attn.launches = 0
-        ms_deform_attn.backward_launches = 0
+        zero_counts()
         rc, out = _run_probe(argv)
-        counts = (ms_deform_attn.launches, ms_deform_attn.backward_launches)
+        n = counts()
         # ------------------------------------------------------------------
         check(rc == 0 and "FAIL" not in out
               and out.rstrip().endswith("DONE"),
               f"probe {argv[0]} exited {rc} or printed FAIL")
-        return out, counts
+        return out, n
 
     presets, batches = ("canonical_t4", "light_t1"), (1, 4)
-    out, (fwd, _) = run(["forward", "--presets", ",".join(presets),
-                         "--batch", ",".join(map(str, batches)), "--dtype",
-                         "bf16", "-K", str(K), "--device", "cuda"])
+    out, fwd_n = run(["forward", "--presets", ",".join(presets),
+                      "--batch", ",".join(map(str, batches)), "--dtype",
+                      "bf16", "-K", str(K), "--device", "cuda"])
+    fwd = fwd_n["msda_forward"]
     layers = {p: getattr(Config, p)().enc_layers
               + getattr(Config, p)().dec_layers for p in presets}
     calls = len(batches) * (2 + 2 * K)
@@ -1156,25 +1189,27 @@ def probe_model_runs(K=8, train_K=2, split_K=3):
                   and "bf16 weights and input" in ln
                   for ln in forward_lines), f"probe forward: {out}")
 
-    out, (tf, tb) = run(["train", "-K", str(train_K), "--device", "cuda"])
+    out, train_n = run(["train", "-K", str(train_K), "--device", "cuda"])
+    tf, tb, tl = train_n.values()
     per = Config.canonical_t4_f2().enc_layers \
         + Config.canonical_t4_f2().dec_layers
     steps = 1 + train_K
-    check((tf, tb) == (per * steps, per * steps),
-          f"probe train: {tf} + {tb} launches in {steps} steps, expected "
-          f"{per} + {per} per step")
+    check((tf, tb, tl) == (per * steps, per * steps, steps),
+          f"probe train: {tf} + {tb} + {tl} launches in {steps} steps, "
+          f"expected {per} + {per} + 1 per step")
     train_line = [ln for ln in out.splitlines() if ln.startswith("train ")]
 
-    out, (sf, sb) = run(["split", "-K", str(split_K), "--device", "cuda"])
+    out, split_n = run(["split", "-K", str(split_K), "--device", "cuda"])
+    sf, sb, _ = split_n.values()
     check((sf, sb) == (0, 0), f"probe split: {sf} + {sb} MSDA launches "
           f"under deform_impl='skip', expected none")
     split_lines = [ln for ln in out.splitlines()
                    if ln.startswith(("enc=", "solved:"))]
     log(f"probe forward/train/split: msda_forward {fwd} launches over "
         f"{len(forward_lines)} points ({layers} per forward call), train "
-        f"{tf} + {tb} over {steps} steps, split {sf}")
+        f"{tf} + {tb} (lsa_rows {tl}) over {steps} steps, split {sf}")
     return dict(forward_launches=fwd, forward_lines=forward_lines,
-                train_launches=[tf, tb], train_lines=train_line,
+                train_launches=[tf, tb, tl], train_lines=train_line,
                 split_launches=sf, split_lines=split_lines)
 
 
@@ -1574,6 +1609,11 @@ def phase_serving_device(work, host_res, card):
 
 # ------------------------------------------- serving profiles and export
 FAST_SPEC = "enc4,p2,r480"
+# the depth of the export, multi-GPU and canonical train-to-accuracy legs:
+# two encoder and two decoder layers at full width show those paths right
+# (the artifact's graph, the ranks' cuts and collectives, AdamW and the
+# matching over 1600 updates) in a fraction of the full model's time
+CUT_DEPTH = dict(enc_layers=2, dec_layers=2)
 TOL_EXPORT = 1e-5
 # the bf16 artifact against the live bf16 forward: the same operators on
 # the same bf16 weights; one bf16 unit of each output's scale (they agree
@@ -1617,7 +1657,8 @@ def phase_fast_export(work, card, main_res):
     enc4,p2,r480 --device_preprocess``, counts at 0 just before and read
     just after (10 launches per snippet), and the profile's forward against
     the same forward with the plain MSDA (TOL_FORWARD); (b) ``probe fast``
-    with its default specs; (c) the f32 export on the card, saved and
+    with its default specs; (c) the f32 export on the card (canonical_t4
+    cut to CUT_DEPTH, phase 4's weights of those layers), saved and
     loaded in a subprocess that imports only torch and the MSDA operators:
     its outputs against the live model (TOL_EXPORT, TF32 off in both) and
     its launches per call; (d) the bf16 export (JAX's bf16 recipe: bf16
@@ -1706,8 +1747,11 @@ def phase_fast_export(work, card, main_res):
 
     # ---- (c) the artifact, loaded without the model's modules ------------
     set_tf32(False)
+    base = base.replace(**CUT_DEPTH)
     model = build_model(base, device="cuda")
-    model.load_state_dict(load_checkpoint(ckpt)["params"])
+    keep = model.state_dict()
+    model.load_state_dict({k: v for k, v in load_checkpoint(ckpt)[
+        "params"].items() if k in keep})
     t0 = time.perf_counter()
     exported = export_forward(base, model.state_dict(), device="cuda")
     export_s = time.perf_counter() - t0
@@ -1748,7 +1792,8 @@ def phase_fast_export(work, card, main_res):
     check(int(art["sampling_overflow"]) == 0
           and art["sampling_overflow"].dtype == torch.int32,
           "artifact sampling_overflow")
-    log(f"export of canonical_t4 f32 on the card ({card}): traced in "
+    log(f"export of canonical_t4 enc{base.enc_layers}/dec{base.dec_layers} "
+        f"f32 on the card ({card}): traced in "
         f"{export_s:.1f} s, {size / 1e6:.1f} MB, {nodes} msda_forward "
         f"nodes; loaded in a subprocess importing {loaded['modules']}: "
         f"{loaded['launches']} launches per call, {loaded['ms']:.2f} ms per"
@@ -1765,10 +1810,16 @@ def phase_fast_export(work, card, main_res):
               if t.is_floating_point()]
     weight_bytes = {name: sum(t.nbytes for t in ep.state_dict.values())
                     for name, ep in (("f32", exported), ("bf16", exported_b))}
+    # half the weights' bytes, the rest of the file (the program and its
+    # constants) as in the f32 artifact
+    rest = (size - weight_bytes["f32"], size_b - weight_bytes["bf16"])
     check(floats and all(t.dtype == torch.bfloat16 for t in floats)
-          and size_b < 0.6 * size,
-          f"the bf16 artifact holds a weight that is not bf16 or weighs "
-          f"{size_b} B against the f32 artifact's {size}")
+          and 2 * weight_bytes["bf16"] == weight_bytes["f32"]
+          and abs(rest[0] - rest[1]) <= 0.01 * size,
+          f"the bf16 artifact holds a weight that is not bf16, or its "
+          f"weights ({weight_bytes['bf16']} B) are not half the f32 "
+          f"artifact's ({weight_bytes['f32']} B), or the rest of its "
+          f"{size_b} B differs from the f32 artifact's ({rest})")
     nodes_b = sum("snipper_tpu_torch.msda_forward" in str(nd.target)
                   for nd in exported_b.graph.nodes
                   if nd.op == "call_function")
@@ -1798,7 +1849,8 @@ def phase_fast_export(work, card, main_res):
         art_b, live_b, relative=True).items()}
     check(max(units_b.values()) <= TOL_EXPORT_BF16_UNITS,
           f"bf16 artifact vs the live bf16 forward: {units_b} bf16 units")
-    log(f"export of canonical_t4 bf16 (JAX's recipe) on the card ({card}): "
+    log(f"export of canonical_t4 enc{base.enc_layers}/dec{base.dec_layers} "
+        f"bf16 (JAX's recipe) on the card ({card}): "
         f"traced in {export_b_s:.1f} s, {size_b / 1e6:.1f} MB "
         f"({size_b / size:.3f} of the f32 artifact; weights "
         f"{weight_bytes['bf16'] / 1e6:.1f} MB against "
@@ -1886,7 +1938,6 @@ def phase_profile_labels(work, card, real_root, steps=4):
     from snipper_tpu_torch.cli import train as train_cli
     from snipper_tpu_torch.config import Config
     from snipper_tpu_torch.data.datasets import HybridDataset
-    from snipper_tpu_torch.ops.msda import ms_deform_attn
     from snipper_tpu_torch.utils.profiling import host_spans, summarize_trace
 
     cfg = Config.canonical_t4_f2()
@@ -1897,8 +1948,7 @@ def phase_profile_labels(work, card, real_root, steps=4):
         prof = os.path.join(work, f"profile{attempt}")
         buf = io.StringIO()
         # ---- the profiled training run, counts at 0 ----------------------
-        ms_deform_attn.launches = 0
-        ms_deform_attn.backward_launches = 0
+        zero_counts()
         with contextlib.redirect_stdout(buf):
             res = train_cli.main([
                 "--preset", "canonical_t4_f2", "--synthetic",
@@ -1908,11 +1958,11 @@ def phase_profile_labels(work, card, real_root, steps=4):
                 "--profile_steps", "2", "--output_dir",
                 os.path.join(work, f"train_prof{attempt}"),
                 "--device", "cuda"])
-        launches = {"msda_forward": ms_deform_attn.launches,
-                    "msda_backward": ms_deform_attn.backward_launches}
+        launches = counts()
         # ------------------------------------------------------------------
         check(launches == {"msda_forward": per_pass * steps,
-                           "msda_backward": per_pass * steps},
+                           "msda_backward": per_pass * steps,
+                           "lsa_rows": steps},
               f"profiled training launches {launches} in {steps} steps")
         top = summarize_trace(prof, top_k=10_000, n_iters=2)
         msda = {name: sum(ms for k, ms in top.items() if name in k)
@@ -2092,7 +2142,6 @@ def phase_train(work, steps=8):
 
     from snipper_tpu_torch.cli import train as train_cli
     from snipper_tpu_torch.config import Config
-    from snipper_tpu_torch.ops.msda import ms_deform_attn
 
     cfg = Config.canonical_t4_f2()
     out_dir = os.path.join(work, "train")
@@ -2101,15 +2150,13 @@ def phase_train(work, steps=8):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.reset_peak_memory_stats()
     # ---- the training path, with every kernel's count at 0 ---------------
-    ms_deform_attn.launches = 0
-    ms_deform_attn.backward_launches = 0
+    zero_counts()
     res = train_cli.main([
         "--preset", "canonical_t4_f2", "--synthetic", "--batch_size", "2",
         "--synthetic_distinct", "2", "--epochs", "1",
         "--steps_per_epoch", str(steps), "--output_dir", out_dir,
         "--device", "cuda"])
-    launches = {"msda_forward": ms_deform_attn.launches,
-                "msda_backward": ms_deform_attn.backward_launches}
+    launches = counts()
     # ----------------------------------------------------------------------
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     hist = res["history"]
@@ -2127,6 +2174,10 @@ def phase_train(work, steps=8):
           f"msda_forward launched {launches['msda_forward']} times in "
           f"{steps} steps and {n_eval} eval batches, expected "
           f"{per_layer_pass} per step and per eval batch")
+    check(launches["lsa_rows"] == steps + n_eval,
+          f"lsa_rows launched {launches['lsa_rows']} times in {steps} "
+          f"steps and {n_eval} eval batches, expected one per step and per "
+          f"eval batch")
     losses = [h["loss_total"] for h in hist]
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     check(res["checkpoint"] and os.path.exists(res["checkpoint"]),
@@ -2147,7 +2198,8 @@ def phase_train(work, steps=8):
         f"mixed precision, {steps} steps + {n_eval} eval batches; "
         f"msda_forward {launches['msda_forward']} launches ({per_forward:g}"
         f" per step and per eval batch), msda_backward "
-        f"{launches['msda_backward']} ({per_step:g} per step); steady-state "
+        f"{launches['msda_backward']} ({per_step:g} per step), lsa_rows "
+        f"{launches['lsa_rows']} (one per step and eval batch); steady-state "
         f"step {step_ms:.2f} ms, period {period_ms:.2f} ms "
         f"(median, first two steps excluded), {2e3 / period_ms:.3f} "
         f"samples/s;"
@@ -2173,19 +2225,17 @@ def phase_eval(work, ckpt, samples=8):
 
     from snipper_tpu_torch.cli import eval as eval_cli
     from snipper_tpu_torch.config import Config
-    from snipper_tpu_torch.ops.msda import ms_deform_attn
-
     cfg = Config.canonical_t4_f2()
     out_dir = os.path.join(work, "eval")
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
     # ---- the eval path, with every kernel's count at 0 -------------------
-    ms_deform_attn.launches = 0
+    zero_counts()
     res = eval_cli.main([
         "--preset", "canonical_t4_f2", "--synthetic", "--synthetic_samples",
         str(samples), "--resume", ckpt, "--save_vis", "--write_posetrack",
         "--output_dir", out_dir, "--device", "cuda"])
-    launches = {"msda_forward": ms_deform_attn.launches}
+    launches = counts()
     # ----------------------------------------------------------------------
     n = res["batches"]
     check(n == samples // cfg.batch_size, f"{n} eval batches")
@@ -2194,6 +2244,9 @@ def phase_eval(work, ckpt, samples=8):
           f"msda_forward launched {launches['msda_forward']} times in {n} "
           f"eval batches, expected {cfg.enc_layers + cfg.dec_layers} per "
           f"batch")
+    check(launches["lsa_rows"] == n and launches["msda_backward"] == 0,
+          f"eval launches {launches} in {n} batches, expected one lsa_rows "
+          f"per batch and no msda_backward")
     with open(os.path.join(out_dir, "eval_stats.json")) as f:
         stats = json.load(f)
     bad = {k: v for k, v in stats.items() if not math.isfinite(v)}
@@ -2265,13 +2318,10 @@ def _accuracy_cli(cli, argv, out_dir):
     {kernel: launches})``; an eval's result carries its
     ``eval_stats.json``."""
     from snipper_tpu_torch.cli import eval as eval_cli
-    from snipper_tpu_torch.ops.msda import ms_deform_attn
 
-    ms_deform_attn.launches = 0
-    ms_deform_attn.backward_launches = 0
+    zero_counts()
     res = cli.main(argv + ["--output_dir", out_dir, "--device", "cuda"])
-    launches = {"msda_forward": ms_deform_attn.launches,
-                "msda_backward": ms_deform_attn.backward_launches}
+    launches = counts()
     if cli is eval_cli:
         with open(os.path.join(out_dir, "eval_stats.json")) as f:
             res["file_stats"] = json.load(f)
@@ -2286,7 +2336,8 @@ def _accuracy_leg(work, name, preset, n_layers, train_argv, eval_argv,
     checkpoint ``midway = (epoch, updates by its end)``); the launches of
     each run checked
     (``n_layers`` of ``msda_forward`` per update and eval batch, of
-    ``msda_backward`` per update)."""
+    ``msda_backward`` per update, one ``lsa_rows`` per update and eval
+    batch)."""
     import torch
 
     from snipper_tpu_torch.cli import eval as eval_cli
@@ -2320,13 +2371,15 @@ def _accuracy_leg(work, name, preset, n_layers, train_argv, eval_argv,
           f"{updates}")
     n_eval = res["eval"]["_batches"] if res["eval"] else 0
     check(train_n == {"msda_forward": n_layers * (updates + n_eval),
-                      "msda_backward": n_layers * updates},
+                      "msda_backward": n_layers * updates,
+                      "lsa_rows": updates + n_eval},
           f"{name}: cli.train launched {train_n} in {updates} updates and "
           f"{n_eval} eval batches, expected {n_layers} of each per update "
-          f"and {n_layers} msda_forward per eval batch")
+          f"and {n_layers} msda_forward per eval batch, one lsa_rows per "
+          f"update and eval batch")
     for what, r, n in evals:
         check(n == {"msda_forward": n_layers * r["batches"],
-                    "msda_backward": 0},
+                    "msda_backward": 0, "lsa_rows": r["batches"]},
               f"{name}: the {what} cli.eval launched {n} in {r['batches']}"
               f" batches, expected {n_layers} msda_forward per batch")
     losses = [h["loss_total"] for h in hist]
@@ -2391,12 +2444,14 @@ def phase_train_accuracy(work, card):
     updates of 8 (25 an epoch, 16 epochs, StepLR 10x at epoch 10) with one
     eval at the end, ``cli.eval`` on the checkpoint: every bar of the JAX
     test, and ``test_3dpck`` in ``log.txt``.
-    (b) canonical_t4_f2 at full width and depth: 8 fixed samples, batch 2,
-    1600 updates (200 an epoch, 8 epochs, the drop at epoch 5; the heatmap
-    loss at weight 0.001, as in JAX's canonical overfit run), ``cli.eval``
-    from random init and on the checkpoint, batches of 8 (and, reported
+    (b) canonical_t4_f2 at full width, cut to CUT_DEPTH (two encoder and
+    two decoder layers; at enc6/dec6 the leg took 471-568 s of the
+    script's 1200): 8 fixed samples, batch 2, 1600 updates (200 an epoch,
+    8 epochs, the drop at epoch 5; the heatmap loss at weight 0.001, as
+    in JAX's canonical overfit run), ``cli.eval`` from random init and on
+    the checkpoint, batches of 8 (and, reported
     alone, on the checkpoint at update 600, which may score no person and
-    so hold no 3D metric: the person score lags at this width). Bars: the
+    so hold no 3D metric: at enc6/dec6 the person score lagged). Bars: the
     mean ``loss_total`` of the last 20 updates at most half that of the
     first 20, pel-MPJPE at most half the floor's, 3DPCK at least the
     floor's + 0.2; JAX's bars are reported, not required.
@@ -2426,16 +2481,18 @@ def phase_train_accuracy(work, card):
 
     # no eval inside cli.train here (its val set cycles the 8 samples over
     # 200 batches); cli.eval scores the checkpoint on the 8
+    depth = [a for k, v in CUT_DEPTH.items() for a in (f"--{k}", str(v))]
     canon = _accuracy_leg(
-        work, "canonical_t4_f2", "canonical_t4_f2", 12,
+        work, "canonical_t4_f2", "canonical_t4_f2", sum(CUT_DEPTH.values()),
         ["--synthetic_samples", str(CANONICAL_UPDATES // 4),
          "--batch_size", "2", "--epochs", "8", "--lr_drop", "5",
-         "--eval_every", "9"] + ACCURACY_RECIPE + CANONICAL_HEATMAP_COEF,
+         "--eval_every", "9"] + ACCURACY_RECIPE + CANONICAL_HEATMAP_COEF
+        + depth,
         ["--synthetic_samples", "8", "--batch_size", "8", "--dropout",
-         "0.0", "--num_workers", "8"], updates=CANONICAL_UPDATES,
+         "0.0", "--num_workers", "8"] + depth, updates=CANONICAL_UPDATES,
         midway=(2, 3 * CANONICAL_UPDATES // 8))
-    _log_accuracy_leg(card, "canonical_t4_f2", "600x800 enc6/dec6, batch 2",
-                      canon)
+    _log_accuracy_leg(card, "canonical_t4_f2", "600x800 enc{enc_layers}/"
+                      "dec{dec_layers}, batch 2".format(**CUT_DEPTH), canon)
     first, last = (statistics.fmean(canon["losses"][:20]),
                    statistics.fmean(canon["losses"][-20:]))
     floor, stats = canon["floor"], canon["stats"]
@@ -2545,7 +2602,6 @@ def phase_train_real(work, card, steps=8, host_steps=3):
     from snipper_tpu_torch.data.snippet import stack_batch
     from snipper_tpu_torch.losses.criterion import SetCriterion
     from snipper_tpu_torch.models.snipper import build_model
-    from snipper_tpu_torch.ops.msda import ms_deform_attn
     from snipper_tpu_torch.train.state import create_train_state
     from snipper_tpu_torch.train.step import batch_to_device, train_step
 
@@ -2591,15 +2647,13 @@ def phase_train_real(work, card, steps=8, host_steps=3):
 
     # ---- (b) training with the device warp, counts at 0 ------------------
     out_dev = os.path.join(work, "train_real")
-    ms_deform_attn.launches = 0
-    ms_deform_attn.backward_launches = 0
+    zero_counts()
     res = train_cli.main([
         "--preset", "canonical_t4_f2", "--batch_size", "2",
         "--posetrack_dir", root, "--device_preprocess", "--epochs", "1",
         "--steps_per_epoch", str(steps), "--output_dir", out_dev,
         "--device", "cuda"])
-    train_launches = {"msda_forward": ms_deform_attn.launches,
-                      "msda_backward": ms_deform_attn.backward_launches}
+    train_launches = counts()
     # ----------------------------------------------------------------------
     hist = res["history"]
     n_eval = res["eval"]["_batches"]
@@ -2607,10 +2661,11 @@ def phase_train_real(work, card, steps=8, host_steps=3):
     check(train_launches["msda_backward"] == per_pass * steps,
           f"msda_backward launched {train_launches['msda_backward']} times "
           f"in {steps} steps from raw frames, expected {per_pass} per step")
-    check(train_launches["msda_forward"] == per_pass * (steps + n_eval),
-          f"msda_forward launched {train_launches['msda_forward']} times in"
-          f" {steps} steps and {n_eval} eval batches, expected {per_pass} "
-          f"per step and per eval batch")
+    check(train_launches["msda_forward"] == per_pass * (steps + n_eval)
+          and train_launches["lsa_rows"] == steps + n_eval,
+          f"launches {train_launches} in {steps} steps and {n_eval} eval "
+          f"batches, expected {per_pass} msda_forward and one lsa_rows per "
+          f"step and per eval batch")
     losses = [h["loss_total"] for h in hist]
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     check(res["checkpoint"] and os.path.exists(res["checkpoint"]),
@@ -2685,21 +2740,19 @@ def phase_train_real(work, card, steps=8, host_steps=3):
 
     # ---- (d) eval on the files with the harness, counts at 0 ------------
     out_eval = os.path.join(work, "eval_real")
-    ms_deform_attn.launches = 0
-    ms_deform_attn.backward_launches = 0
+    zero_counts()
     ev = eval_cli.main([
         "--preset", "canonical_t4_f2", "--batch_size", "2",
         "--posetrack_dir", root, "--posetrack_gt_dir", gt_dir,
         "--write_posetrack", "--resume", res["checkpoint"],
         "--output_dir", out_eval, "--device", "cuda"])
-    eval_launches = {"msda_forward": ms_deform_attn.launches,
-                     "msda_backward": ms_deform_attn.backward_launches}
+    eval_launches = counts()
     # ----------------------------------------------------------------------
     n = ev["batches"]
-    check(n > 0 and eval_launches["msda_forward"] == per_pass * n
-          and eval_launches["msda_backward"] == 0,
+    check(n > 0 and eval_launches == {"msda_forward": per_pass * n,
+                                      "msda_backward": 0, "lsa_rows": n},
           f"eval launches {eval_launches} over {n} batches, expected "
-          f"{per_pass} msda_forward per batch")
+          f"{per_pass} msda_forward and one lsa_rows per batch")
     with open(os.path.join(out_eval, "eval_stats.json")) as f:
         stats = json.load(f)
     bad = {k: v for k, v in stats.items() if not math.isfinite(v)}
@@ -2872,14 +2925,19 @@ def phase_train_agreement(tol_loss=1e-4, tol_grad=1e-3):
     ``tol_loss`` of its size; each gradient tensor within ``tol_grad`` of
     its largest entry (at least 1e-3 of the largest gradient anywhere):
     f32 sums in other orders through 12 layers, and d_value's atomics.
-    Then a profiler breakdown of one bf16 train step on the same model."""
+    The plain step also solves the matching with the plain ``lsa_rows``:
+    every decoder layer's assignment must be the same, the kernel step's
+    in one launch. Then a profiler breakdown of one bf16 train step on
+    the same model."""
     import torch
 
     from snipper_tpu_torch.config import Config
     from snipper_tpu_torch.data.snippet import stack_batch
     from snipper_tpu_torch.data.synthetic import SyntheticDataset
     from snipper_tpu_torch.losses.criterion import SetCriterion
+    from snipper_tpu_torch.matching import matcher
     from snipper_tpu_torch.ops import deform_attn
+    from snipper_tpu_torch.ops.lsa import lsa_rows, lsa_rows_torch
     from snipper_tpu_torch.ops.msda import ms_deform_attn_torch
     from snipper_tpu_torch.train.state import create_train_state, param_label
     from snipper_tpu_torch.train.step import (batch_to_device, forward_loss,
@@ -2904,14 +2962,33 @@ def phase_train_agreement(tol_loss=1e-4, tol_grad=1e-3):
         grads = torch.autograd.grad(total, [p for _, p in named])
         return total.item(), grads, src.cpu()
 
-    loss_k, grads_k, src_k = step()
-    wrapper = deform_attn.ms_deform_attn
+    solved = []  # every layer's assignment of each step, [nl * B, M]
+
+    def recorded(solve):
+        def fn(cost):
+            out = solve(cost)
+            solved.append(out.cpu())
+            return out
+        return fn
+
+    wrapper, solver = deform_attn.ms_deform_attn, matcher.lsa_rows
+    matcher.lsa_rows = recorded(solver)
+    lsa_rows.launches = 0
+    try:
+        loss_k, grads_k, src_k = step()
+    finally:
+        matcher.lsa_rows = solver
+    lsa_launches = lsa_rows.launches
     deform_attn.ms_deform_attn = ms_deform_attn_torch
+    matcher.lsa_rows = recorded(lsa_rows_torch)
     try:
         loss_p, grads_p, src_p = step()
     finally:
-        deform_attn.ms_deform_attn = wrapper
-    check(torch.equal(src_k, src_p), "the two steps matched differently")
+        deform_attn.ms_deform_attn, matcher.lsa_rows = wrapper, solver
+    check(lsa_launches == 1 and len(solved) == 2,
+          f"the kernel step launched lsa_rows {lsa_launches} times")
+    check(torch.equal(src_k, src_p) and torch.equal(*solved),
+          "the two steps matched differently")
     g_max = max(g.abs().max().item() for g in grads_p)
     worst = (0.0, "", 0.0)
     for (name, _), gk, gp in zip(named, grads_k, grads_p):
@@ -2931,11 +3008,13 @@ def phase_train_agreement(tol_loss=1e-4, tol_grad=1e-3):
         f"{loss_p:.6f} (|diff| {loss_err:.3e}, tol {tol_loss:g} relative); "
         f"{len(named)} gradient tensors, largest |grad| {g_max:.4e}, worst "
         f"{worst[1]} max|diff| {worst[2]:.3e} = {worst[0]:.3e} of its scale"
-        f" (tol {tol_grad:g}); same matching")
+        f" (tol {tol_grad:g}); the same matching on all "
+        f"{solved[0].shape[0]} problems (every decoder layer of each "
+        f"sample), the kernel step's in {lsa_launches} lsa_rows launch")
     del grads_k, grads_p
 
     # where a bf16 train step's time goes (the CLI's step: forward,
-    # criterion with the host matching, backward, clip, AdamW), with
+    # criterion with the matching on the card, backward, clip, AdamW), with
     # PyTorch's default TF32 settings
     torch.backends.cudnn.allow_tf32 = True
     state = create_train_state(cfg, model)
@@ -2955,6 +3034,205 @@ def phase_train_agreement(tol_loss=1e-4, tol_grad=1e-3):
                 grad_worst_rel=worst[0], grad_worst_param=worst[1],
                 grad_worst_abs=worst[2], grad_max=g_max,
                 n_grads=len(named), step_breakdown=bd)
+
+
+# ------------------------------------------------------------- matching
+def lsa_fixtures(seed=0):
+    """Assignment problems in the matcher's layout, ``(name, cost [P, N, M]
+    f32)``, which tests/test_torch_port_cuda.py and
+    tests/test_torch_port_lsa.py use too: (a) integer costs
+    in {0..3} with 1..M valid slots and the padding columns zeroed (every
+    dual an exact f32 integer, so only the algorithm's order breaks the
+    ties), N in (8, 20, 60), M from 1 to N, 210 problems; (b) continuous
+    costs; (c) M = N and M = 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for n, ms in ((8, range(1, 9)), (20, (1, 2, 5, 10, 15, 19, 20)),
+                  (60, (1, 8, 20, 32, 59, 60))):
+        for m in ms:
+            c = rng.integers(0, 4, (10, n, m)).astype(np.float32)
+            for p, nv in enumerate(rng.integers(1, m + 1, 10)):
+                c[p, :, nv:] = 0.0
+            out.append((f"tied_n{n}_m{m}", c))
+    for n, m in ((8, 4), (60, 32)):
+        out.append((f"continuous_n{n}_m{m}",
+                    rng.standard_normal((10, n, m)).astype(np.float32)))
+    for n, m in ((7, 7), (60, 60), (9, 1), (60, 1)):
+        out.append((f"edge_n{n}_m{m}", rng.uniform(
+            -1, 1, (5, n, m)).astype(np.float32)))
+    return out
+
+
+def lsa_bound_ms(P, M, N, steps):
+    """Least time for ``lsa_rows`` on ``P`` problems of ``M`` x ``N`` that
+    took ``steps`` Dijkstra steps in all: the costs read once and the
+    indices written once, against, per step, N reduced costs (three adds
+    and a compare each) and N compares of the argmin, and per row and
+    problem the dual updates (M + N)."""
+    return _bound(P * M * N * 4 + P * M * 8,
+                  5 * N * steps + 2 * P * M * (M + N))
+
+
+def phase_matching(card):
+    """The ``lsa_rows`` kernel (JAX's Jonker-Volgenant solver) against the
+    plain version: every slot of the fixtures of :func:`lsa_fixtures`, and
+    of the 12 problems (6 decoder layers x batch 2) of a real
+    canonical_t4_f2 b2 bf16 train step's costs, caught where the matcher
+    solves them; the kernel's time per call (CUDA events) and alone
+    (torch.profiler) beside its bound, the plain version on the card and
+    the scipy route the port took before (the costs copied to the host, 12
+    solves, the indices copied back). That step (forward, criterion,
+    backward, clip and AdamW) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, its counts at 0 just
+    before and read just after (one ``lsa_rows`` launch); its loss is read
+    after. Should a synchronising call raise, the step runs again in
+    ``"warn"`` mode and every synchronising call's stack is logged."""
+    import traceback
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from snipper_tpu_torch.config import Config
+    from snipper_tpu_torch.data.snippet import stack_batch
+    from snipper_tpu_torch.data.synthetic import SyntheticDataset
+    from snipper_tpu_torch.losses.criterion import SetCriterion
+    from snipper_tpu_torch.matching import matcher
+    from snipper_tpu_torch.ops.lsa import lsa_rows, lsa_rows_torch
+    from snipper_tpu_torch.train.state import create_train_state
+    from snipper_tpu_torch.train.step import batch_to_device, train_step
+
+    # (a)-(c): the kernel against the plain version on every slot
+    n_fix = 0
+    for name, c in lsa_fixtures():
+        cost = torch.from_numpy(c)
+        before = lsa_rows.launches
+        got = lsa_rows(cost.cuda().transpose(1, 2))
+        check(lsa_rows.launches == before + 1, f"lsa_rows {name}: launches")
+        want = lsa_rows_torch(cost.transpose(1, 2))
+        torch.cuda.synchronize()
+        check(torch.equal(got.cpu(), want),
+              f"lsa_rows kernel vs plain on {name}: "
+              f"{int((got.cpu() != want).sum())} slots differ")
+        n_fix += len(c)
+
+    # a real step: canonical_t4_f2 b2, bf16 mixed precision, the CLI's
+    # TF32 settings; one step first (lazy initialisation), then the step
+    # under the sync check with the costs caught where they are solved
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config.canonical_t4_f2()
+    model = perturbed_model(cfg, seed=4).train()
+    state = create_train_state(cfg, model)
+    crit = SetCriterion(cfg)
+    ds = SyntheticDataset(cfg, n_samples=2, seed=1)
+    batch = batch_to_device(stack_batch([ds[0], ds[1]]),
+                            torch.device("cuda"))
+    gen = torch.Generator().manual_seed(0)
+    train_step(state, crit, batch, gen)
+    torch.cuda.synchronize()
+    caught = []
+    solve = matcher.lsa_rows
+
+    def catch(cost):
+        caught.append(cost.clone())
+        return solve(cost)
+
+    def sync_step(mode):
+        matcher.lsa_rows = catch
+        torch.cuda.set_sync_debug_mode(mode)
+        try:
+            return train_step(state, crit, batch, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            matcher.lsa_rows = solve
+
+    # ---- the step under the sync check, with every count at 0 ----------
+    zero_counts()
+    try:
+        metrics = sync_step("error")
+        raised = None
+    except RuntimeError as e:
+        raised = e
+    launches = counts()
+    # ----------------------------------------------------------------------
+    if raised is not None:
+        sites = []
+
+        def keep(message, category, filename, lineno, file=None,
+                 line=None):
+            sites.append(f"{message}\n" + "".join(
+                traceback.format_stack()[:-1][-12:]))
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = keep
+            sync_step("warn")
+            torch.cuda.synchronize()
+        for site in sites:
+            log(f"synchronising call in the train step: {site}")
+        check(False, f"the train step synchronised under "
+              f"set_sync_debug_mode('error'): {raised}; {len(sites)} "
+              f"synchronising calls logged above")
+    loss = metrics["loss_total"].item()
+    check(math.isfinite(loss), f"the sync-checked step's loss {loss}")
+    check(launches == {"msda_forward": cfg.enc_layers + cfg.dec_layers,
+                       "msda_backward": cfg.enc_layers + cfg.dec_layers,
+                       "lsa_rows": 1},
+          f"the sync-checked step launched {launches}")
+    cost = caught[-1]                                   # [12, 32, 60] view
+    P, M, N = cost.shape
+    got = lsa_rows(cost)
+    want, steps = lsa_rows_torch(cost.cpu(), return_steps=True)
+    check(torch.equal(got.cpu(), want),
+          f"lsa_rows kernel vs plain on the step's {P} problems: "
+          f"{int((got.cpu() != want).sum())} slots differ")
+    n_steps = int(steps.sum())
+
+    # times: the kernel per call and alone, the plain version on the card,
+    # the scipy route of the parent (host copy, P solves, copy back)
+    ms = time_ms(lambda: lsa_rows(cost), reps=50)
+    dev_ms = device_ms(lambda: lsa_rows(cost), "lsa_rows_kernel", reps=20)
+    plain_ms = time_ms(lambda: lsa_rows_torch(cost), reps=3, warmup=1)
+    costs_nm = cost.transpose(1, 2)                     # [P, N, M], as built
+
+    def scipy_route():
+        src = matcher.hungarian_scipy(costs_nm.cpu().numpy())
+        return torch.from_numpy(src).pin_memory().cuda(non_blocking=True)
+
+    # scipy breaks ties otherwise, but its assignment costs the same
+    rows = torch.arange(M)
+    totals = [float(cost.cpu()[p, rows, a[p].cpu()].sum())
+              for a in (want, scipy_route().cpu()) for p in range(P)]
+    check(np.allclose(totals[:P], totals[P:], rtol=1e-5, atol=1e-5),
+          f"lsa_rows vs scipy's optimal cost on the step's problems: "
+          f"{totals}")
+    scipy_ms = time_ms(scipy_route, reps=20)
+    bound, bound_by = lsa_bound_ms(P, M, N, n_steps)
+    valid = batch["targets"]["valid"].sum().item()
+    log(f"lsa_rows ({card}): the kernel equals the plain version on every "
+        f"slot of {n_fix} fixture problems (tied integer, continuous, "
+        f"M = N, M = 1) and of a canonical_t4_f2 b2 bf16 step's {P} "
+        f"problems ({M} slots x {N} queries, {valid} valid targets, "
+        f"{n_steps} Dijkstra steps in all, {max(steps.tolist())} at most "
+        f"in one problem); {ms:.4f} ms per call (CUDA events), "
+        f"{dev_ms:.4f} ms of device time alone (torch.profiler), "
+        f"{dev_ms * 1e3 / max(steps.tolist()):.3f} us per dependent step "
+        f"of the longest problem; bound {bound:.6f} ms ({bound_by}); plain "
+        f"version on the card {plain_ms:.2f} ms; the scipy route (copy to "
+        f"the host, {P} solves, copy back) {scipy_ms:.4f} ms. The step "
+        f"(forward, criterion, backward, clip, AdamW) ran under "
+        f"set_sync_debug_mode('error') without a synchronising call, "
+        f"launches {launches}, loss {loss:.4f} read after it")
+    del model, state, batch, caught, cost
+    torch.cuda.empty_cache()
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                scipy_ms=scipy_ms, bound_ms=bound, bound_by=bound_by,
+                problems=P, slots=M, queries=N, dijkstra_steps=n_steps,
+                max_steps=max(steps.tolist()), fixture_problems=n_fix,
+                step_launches=launches, max_abs_err=0)
 
 
 # ------------------------------------------------------------- multi-GPU
@@ -3002,7 +3280,8 @@ def _max_tracks_diff(a, b):
 
 def _rank_phase(inp):
     """One of two gloo ranks on cuda:0 (phase_multi_gpu (a), (b), (d)): an
-    f32 canonical_t4_f2 step with dropout 0 on a data-parallel mesh (batch
+    f32 canonical_t4_f2 step at CUT_DEPTH with dropout 0 on a data-parallel
+    mesh (batch
     1 a rank) and on a tensor-parallel one (the batch of 2, 4 heads a
     rank; two steps each, the first counted, the second timed), then
     ``cli.infer``'s serving function over the two ranks. Each run's kernel
@@ -3026,7 +3305,7 @@ def _rank_phase(inp):
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     rank = multihost.process_index()
-    cfg = Config.canonical_t4_f2().replace(dropout=0.0)
+    cfg = Config.canonical_t4_f2().replace(dropout=0.0, **CUT_DEPTH)
     weights = torch.load(inp["weights"], map_location=dev, weights_only=True)
     host = dict(np.load(inp["batch"]))
     out = {}
@@ -3051,8 +3330,7 @@ def _rank_phase(inp):
             torch.cuda.synchronize()
             if i == 0:
                 # ---- this rank's step, with its kernels' counts at 0 ----
-                ms_deform_attn.launches = 0
-                ms_deform_attn.backward_launches = 0
+                zero_counts()
             t0 = time.perf_counter()
             total, _, _, src = forward_loss(model, crit, batch, False)
             grads = torch.autograd.grad(total, state.params)
@@ -3064,8 +3342,7 @@ def _rank_phase(inp):
             step_ms.append((time.perf_counter() - t0) * 1e3)
             reduce_ms.append(ev[0].elapsed_time(ev[1]))
             if i == 0:
-                launches = {"msda_forward": ms_deform_attn.launches,
-                            "msda_backward": ms_deform_attn.backward_launches}
+                launches = counts()
                 # -------------------------------------------------------
         loss = average_metrics({"loss": total.detach()}, mesh)["loss"].item()
         names = {id(p): n for n, p in model.named_parameters()}
@@ -3129,18 +3406,15 @@ def torchrun_cli(mode, out_json, argv):
     """The child of :func:`_torchrun`: ``mode``'s CLI ``main(argv)`` with
     the kernels' counts set to 0 just before and read just after, written
     to ``out_json`` with the CLI's numbers."""
-    from snipper_tpu_torch.ops.msda import ms_deform_attn
 
     if mode == "train":
         from snipper_tpu_torch.cli.train import main as cli_main
     else:
         from snipper_tpu_torch.cli.infer import main as cli_main
     # ---- the CLI, with every kernel's count at 0 -------------------------
-    ms_deform_attn.launches = 0
-    ms_deform_attn.backward_launches = 0
+    zero_counts()
     res = cli_main(argv)
-    launches = {"msda_forward": ms_deform_attn.launches,
-                "msda_backward": ms_deform_attn.backward_launches}
+    launches = counts()
     # ----------------------------------------------------------------------
     if mode == "train":
         keep = {"checkpoint": res["checkpoint"],
@@ -3162,20 +3436,17 @@ def bench_child(out_json):
     ``out_json``; returns the bench's exit code."""
     import runpy
 
-    from snipper_tpu_torch.ops.msda import ms_deform_attn
 
     sys.argv = ["snipper_tpu_torch.bench"]
     # ---- the bench, with every kernel's count at 0 -----------------------
-    ms_deform_attn.launches = 0
-    ms_deform_attn.backward_launches = 0
+    zero_counts()
     try:
         runpy.run_module("snipper_tpu_torch.bench", run_name="__main__",
                          alter_sys=True)
         rc = 0
     except SystemExit as e:
         rc = e.code if isinstance(e.code, int) else 1
-    launches = {"msda_forward": ms_deform_attn.launches,
-                "msda_backward": ms_deform_attn.backward_launches}
+    launches = counts()
     # ----------------------------------------------------------------------
     with open(out_json, "w") as f:
         json.dump({"launches": launches}, f)
@@ -3251,8 +3522,10 @@ def phase_bench(work, card):
                 + layers("canonical_t4_f2") * calls(bench.TRAIN_K)
                 + layers("light_t1") * calls(bench.CONFIG_K))
     want_bwd = layers("canonical_t4_f2") * calls(bench.TRAIN_K)
-    check(launches == {"msda_forward": want_fwd, "msda_backward": want_bwd},
-          f"bench launches {launches}, expected {want_fwd} + {want_bwd}")
+    check(launches == {"msda_forward": want_fwd, "msda_backward": want_bwd,
+                       "lsa_rows": calls(bench.TRAIN_K)},
+          f"bench launches {launches}, expected {want_fwd} + {want_bwd} + "
+          f"{calls(bench.TRAIN_K)} (one lsa_rows per train step)")
 
     # the bench's forward, kernel against plain MSDA
     set_tf32(False)
@@ -3342,25 +3615,25 @@ def phase_bench(work, card):
 
 
 def phase_multi_gpu(work, card):
-    """The multi-GPU paths on one card, which shows them right, not
-    scaling: (a) an f32 canonical_t4_f2 step (dropout 0, TF32 off) on two
-    gloo ranks of cuda:0, batch 1 each, against the single-process step of
-    batch 2 on the same weights (its criterion at ``dp_size`` 2, as the
-    JAX CLI's on that mesh): loss within 1e-4 relative, every gradient
-    within 1e-3 of its scale, the same matching; (b) the same with the
-    heads cut over the two ranks (tp2, the batch of 2 on both, against
-    ``dp_size`` 1; 12 launches of each MSDA kernel per rank and step, at
-    4 heads); (c) through
-    ``torchrun --standalone --nproc_per_node 1`` (NCCL): ``cli.train`` for
-    3 bf16 steps and its checkpoint, then ``cli.infer --data_parallel``
-    over phase 4's frames, 12 launches per snippet, its tracks within
-    TOL_TRACKS of phase 4's; (d) ``cli.infer``'s serving function on the
-    two gloo ranks, the same tracks, and the decoded outputs of every
-    snippet within TOL_FORWARD of one process's serving (the tracks keep
-    only detections; random weights may have none); (e) ``probe
-    meshscale``: exit 0, no FAIL. Step times by the host clock, the
-    gradient all-reduce by CUDA events, serving rates by the CLI's
-    timestamps."""
+    """The multi-GPU paths on one card, which shows them right, not scaling:
+    (a) an f32 canonical_t4_f2 step at CUT_DEPTH (two encoder and two
+    decoder layers at full width; dropout 0, TF32 off) on two gloo ranks of
+    cuda:0, batch 1 each, against the single-process step of batch 2 on the
+    same weights (its criterion at ``dp_size`` 2, as the JAX CLI's on that
+    mesh): loss within 1e-4 relative, every gradient within 1e-3 of its
+    scale, the same matching; (b) the same with the heads cut over the two
+    ranks (tp2, the batch of 2 on both, against ``dp_size`` 1; 4 launches
+    of each MSDA kernel and one ``lsa_rows`` per rank and step, at 4
+    heads); (c) through ``torchrun --standalone --nproc_per_node 1``
+    (NCCL): ``cli.train`` for 3 bf16 steps at CUT_DEPTH and its checkpoint,
+    then ``cli.infer --data_parallel`` over phase 4's frames, 12 launches
+    per snippet, its tracks within TOL_TRACKS of phase 4's; (d)
+    ``cli.infer``'s serving function on the two gloo ranks, the same
+    tracks, and the decoded outputs of every snippet within TOL_FORWARD of
+    one process's serving (the tracks keep only detections; random weights
+    may have none); (e) ``probe meshscale``: exit 0, no FAIL. Step times by
+    the host clock, the gradient all-reduce by CUDA events, serving rates
+    by the CLI's timestamps."""
     import numpy as np
     import torch
 
@@ -3374,11 +3647,13 @@ def phase_multi_gpu(work, card):
     from snipper_tpu_torch.train.step import batch_to_device, forward_loss
 
     res = {}
-    per_pass = Config.canonical_t4_f2().enc_layers \
-        + Config.canonical_t4_f2().dec_layers
+    # serving runs canonical_t4's full depth, the steps CUT_DEPTH
+    per_pass = Config.canonical_t4().enc_layers \
+        + Config.canonical_t4().dec_layers
+    per_step = CUT_DEPTH["enc_layers"] + CUT_DEPTH["dec_layers"]
     # ---- the single-process reference: one f32 step of batch 2 ----------
     set_tf32(False)
-    cfg = Config.canonical_t4_f2().replace(dropout=0.0)
+    cfg = Config.canonical_t4_f2().replace(dropout=0.0, **CUT_DEPTH)
     model = perturbed_model(cfg, seed=3).train()
     state = create_train_state(cfg, model)
     ds = SyntheticDataset(cfg, n_samples=2, seed=0)
@@ -3447,10 +3722,12 @@ def phase_multi_gpu(work, card):
                   f"process's {want_loss}")
             check(np.array_equal(row["src"], want_src[lo:lo + per]),
                   f"{name} rank {r} matched differently")
-            check(row["launches"] == {"msda_forward": per_pass,
-                                      "msda_backward": per_pass},
+            check(row["launches"] == {"msda_forward": per_step,
+                                      "msda_backward": per_step,
+                                      "lsa_rows": 1},
                   f"{name} rank {r}: launches {row['launches']} in a step, "
-                  f"expected {per_pass} of each")
+                  f"expected {per_step} of each MSDA kernel and one "
+                  f"lsa_rows")
         check(worst[0] <= 1e-3,
               f"{name} gradients: {worst[1]} max|diff| {worst[2]:.3e} is "
               f"{worst[0]:.3e} of its scale > 1e-3")
@@ -3469,7 +3746,8 @@ def phase_multi_gpu(work, card):
                   "no gradient all-reduce (a data axis of 1); the heads' "
                   "all-reduces run inside the forward and backward")
         log(f"multi-GPU ({name}, two gloo ranks on cuda:0, f32, TF32 off, "
-            f"dropout 0; {card}): canonical_t4_f2 step, batch {per} a "
+            f"dropout 0; {card}): canonical_t4_f2 enc{cfg.enc_layers}/dec"
+            f"{cfg.dec_layers} step, batch {per} a "
             f"rank, {rows[0]['heads']} heads a rank; loss "
             f"{rows[0]['loss']:.6f} vs one process's batch-2 step "
             f"{want_loss:.6f}; worst gradient {worst[1]} {worst[0]:.3e} of "
@@ -3515,12 +3793,14 @@ def phase_multi_gpu(work, card):
     tr, out = _torchrun(work, "train", [
         "--preset", "canonical_t4_f2", "--synthetic", "--batch_size", "2",
         "--synthetic_distinct", "2", "--epochs", "1", "--steps_per_epoch",
-        "3", "--eval_every", "2", "--output_dir",
+        "3", "--eval_every", "2", "--enc_layers",
+        str(CUT_DEPTH["enc_layers"]), "--dec_layers",
+        str(CUT_DEPTH["dec_layers"]), "--output_dir",
         os.path.join(work, "torchrun_train"), "--device", "cuda"])
     check("process group: nccl, world 1" in out,
           "torchrun cli.train: no NCCL process group line")
-    check(tr["launches"] == {"msda_forward": 3 * per_pass,
-                             "msda_backward": 3 * per_pass},
+    check(tr["launches"] == {"msda_forward": 3 * per_step,
+                             "msda_backward": 3 * per_step, "lsa_rows": 3},
           f"torchrun cli.train launches {tr['launches']} in 3 steps")
     check(all(math.isfinite(x) for x in tr["losses"])
           and os.path.exists(tr["checkpoint"]),
@@ -3603,7 +3883,7 @@ def main() -> int:
 
     from snipper_tpu_torch.data import native_ops
 
-    sources = ("msda_forward", "msda_backward", "win2d", "lane_chain")
+    sources = ("msda_forward", "msda_backward", "win2d", "lane_chain", "lsa")
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         host_ops = pool.submit(native_ops.have_native)
         built = list(pool.map(
@@ -3670,8 +3950,10 @@ def main() -> int:
                             card, real_res)
         # 5e. the multi-GPU paths on this card
         mg_res = timed("multi_gpu", phase_multi_gpu, work, card)
-    # 6. a train step, kernels against the plain MSDA
+    # 6. a train step, kernels against the plain MSDA and matching
     agree_res = timed("train_agreement", phase_train_agreement)
+    # 6a. the assignment kernel, and a train step with no synchronisation
+    match_res = timed("matching", phase_matching, card)
     # 8. the probe path
     probe_res = timed("probes", phase_probes)
     # 9. the bench
@@ -3766,6 +4048,49 @@ def main() -> int:
         "bench_launches": bench_res["launches"]["msda_backward"],
         "shapes": bwd_res,
     }]
+    kernels.append({
+        "name": "lsa_rows",
+        "route": "cuda",
+        "source": "snipper_tpu_torch/ops/csrc/lsa.cu",
+        "replaces": "snipper_tpu/matching/matcher.py:103",
+        "launches": train_res["launches"]["lsa_rows"],
+        "max_abs_err": match_res["max_abs_err"],
+        "ms": match_res["ms"],
+        "device_ms": match_res["device_ms"],
+        "plain_ms": match_res["plain_ms"],
+        "bound_ms": match_res["bound_ms"],
+        "bound_by": match_res["bound_by"],
+        "library_ms": None,
+        "library": "null: no PyTorch call solves an assignment; beside it "
+                   "the parent's scipy route on the same costs (copy to "
+                   "the host, one linear_sum_assignment a problem, copy "
+                   "back)",
+        "scipy_route_ms": match_res["scipy_ms"],
+        "at": f"a canonical_t4_f2 b2 bf16 train step's costs: "
+              f"P={match_res['problems']} M={match_res['slots']} "
+              f"N={match_res['queries']} f32, "
+              f"{match_res['dijkstra_steps']} Dijkstra steps in all",
+        "ptxas": ptxas["lsa"],
+        "per_train_step_launches": 1,
+        "train_eval_batches": train_res["eval_batches"],
+        "eval_launches": eval_res["launches"]["lsa_rows"],
+        "train_accuracy_launches": {
+            leg: {run: n["lsa_rows"]
+                  for run, n in acc_res[leg]["launches"].items()}
+            for leg in ("tiny", "canonical")},
+        "profiled_train_launches": prof_res["launches"]["lsa_rows"],
+        "real_train_launches": real_res["train_launches"]["lsa_rows"],
+        "real_eval_launches": real_res["eval_launches"]["lsa_rows"],
+        "dp2_step_launches_per_rank": [
+            r["lsa_rows"] for r in mg_res["dp2"]["launches"]],
+        "tp2_step_launches_per_rank": [
+            r["lsa_rows"] for r in mg_res["tp2"]["launches"]],
+        "torchrun_train_launches":
+            mg_res["torchrun"]["train_launches"]["lsa_rows"],
+        "probe_train_launches": probe_res["train_launches"][2],
+        "bench_launches": bench_res["launches"]["lsa_rows"],
+        "sync_checked_step_launches": match_res["step_launches"],
+    })
     k2 = win_res["win2d_sample"]
     kernels.append({
         "name": "win2d_sample",
@@ -3849,6 +4174,9 @@ def main() -> int:
         f"{acc_res['seconds']:.1f} s; train step "
         f"kernels vs plain: "
         f"gradients within {agree_res['grad_worst_rel']:.3e} of scale; "
+        f"lsa_rows {match_res['device_ms']:.4f} ms device time on a step's "
+        f"{match_res['problems']} problems (scipy route "
+        f"{match_res['scipy_ms']:.4f} ms), the step sync-free; "
         f"probe op windowed2d_pallas {probe_res['op_ms']['windowed2d_pallas']}"
         f" ms/op-call (relerr {probe_res['relerr']:.2e}); host warp "
         f"{native_res['native_ms']:.2f} ms a 1920x1080 frame in C++, "

@@ -205,11 +205,14 @@ class SetCriterion:
         self,
         outputs: Dict[str, torch.Tensor],
         targets: Dict[str, torch.Tensor],
+        solver: str = "jax",
         num_traj: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], torch.Tensor]:
         """Returns ``(total weighted loss, loss dict, src_idx of the final
-        layer)``. ``num_traj``: an external normalizer used as it is (the
-        accumulation window's ``max(total_valid / k, 1)``,
+        layer)``. ``solver``: the matcher's (``match_layers``), ``"jax"``
+        on the device by default, as JAX's criterion. ``num_traj``: an
+        external normalizer used as it is (the accumulation window's
+        ``max(total_valid / k, 1)``,
         ``train/engine.py::inject_window_num_traj``); by default the
         batch's valid count (over a mesh, the data group's mean count)
         clamped to >= 1."""
@@ -231,7 +234,7 @@ class SetCriterion:
         layers += [(outputs["aux_logits"][i], outputs["aux_kpts2d"][i],
                     outputs["aux_depth"][i]) for i in range(n_aux)]
         src = match_layers(layers, targets, self.max_depth,
-                           self.match_weights)
+                           self.match_weights, solver=solver)
 
         losses = self._loss_set(*layers[0], targets, src[0], num_traj)
         if "heatmaps" in outputs:

@@ -1,8 +1,8 @@
 """The CUDA kernels ``msda_forward``, ``msda_backward``, ``win2d_sample``,
-``win2d_contract``, ``hier_gather``, ``chain_gather`` and ``chain_select``
-against their plain PyTorch versions, the two MSDA kernels through their
-registered operators, an exported artifact on the card against the live
-model, and the device warps, ``cli.infer --device_preprocess``,
+``win2d_contract``, ``hier_gather``, ``chain_gather``, ``chain_select`` and
+``lsa_rows`` against their plain PyTorch versions, the two MSDA kernels
+through their registered operators, an exported artifact on the card
+against the live model, and the device warps, ``cli.infer --device_preprocess``,
 ``cli.eval``, a train step from raw frames and the side-stream prefetch on
 the card against the CPU, on a CUDA card. Without one, every test here
 skips (the kernels have no CPU mode).
@@ -13,6 +13,9 @@ JAX (tests/conftest.py imports JAX, hence ``--noconftest``):
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
 
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +23,7 @@ import torch
 from snipper_tpu_torch.config import Config
 from snipper_tpu_torch.models.snipper import build_model
 from snipper_tpu_torch.ops import lane_chain, win2d
+from snipper_tpu_torch.ops.lsa import lsa_rows, lsa_rows_torch
 from snipper_tpu_torch.ops.deform_attn import (ms_deform_attn_windowed2d,
                                                windowed2d_plan)
 from snipper_tpu_torch.ops.msda import (flat_shapes, ms_deform_attn,
@@ -366,6 +370,76 @@ def test_tiny_train_step_cuda_matches_cpu(cuda):
         torch.testing.assert_close(res["cuda"][1][k], v, rtol=1e-4,
                                    atol=1e-5, msg=k)
 
+
+
+# ------------------------------------------------------- the assignment
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parent.parent
+        / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# (a) tied integer costs with zeroed padding columns, M from 1 to N, (b)
+# continuous costs, (c) M = N and M = 1: the fixtures chip_smoke.py holds
+# the kernel to on the card
+lsa_fixtures = _chip_smoke().lsa_fixtures
+
+
+def test_lsa_rows_kernel_matches_plain(cuda):
+    """The kernel against the plain version on every slot of every
+    fixture, the cost read as the matcher passes it (a transposed view),
+    one launch a call."""
+    for name, c in lsa_fixtures():
+        cost = torch.from_numpy(c)
+        before = lsa_rows.launches
+        got = lsa_rows(cost.to(cuda).transpose(1, 2))
+        assert lsa_rows.launches == before + 1
+        want = lsa_rows_torch(cost.transpose(1, 2))
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int64 and got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want), name
+
+
+def test_match_layers_one_launch_on_card(cuda):
+    """``match_layers`` solves every decoder layer's problems at
+    canonical_t4_f2's widths in one launch, and its indices, which stay on
+    the card, are the plain version's on the same costs."""
+    from snipper_tpu_torch.losses.criterion import matcher_weight_dict
+    from snipper_tpu_torch.matching.matcher import cost_matrix, match_layers
+
+    cfg = Config.canonical_t4_f2()
+    w = matcher_weight_dict(cfg)
+    rng = np.random.default_rng(7)
+    B, n, T, K, M = (2, cfg.num_queries, cfg.num_frames, cfg.num_kpts,
+                     cfg.max_persons)
+
+    def put(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+
+    layers = [(put(rng.standard_normal((B, n, T, 2))),
+               put(rng.uniform(0, 1, (B, n, T, K, 3))),
+               put(rng.uniform(0, 1, (B, n, T, K, 1))))
+              for _ in range(cfg.dec_layers)]
+    kpts = rng.uniform(0, 1, (B, M, T, K, 3))
+    kpts[..., 2] = kpts[..., 2] > 0.3
+    valid = np.zeros((B, M), bool)
+    valid[0, :3] = valid[1, :1] = True
+    targets = {"kpts2d": put(kpts), "depth": put(rng.uniform(
+        0, 1, (B, M, T, K, 2))), "valid": torch.from_numpy(valid).to(cuda)}
+    before = lsa_rows.launches
+    got = match_layers(layers, targets, cfg.max_depth, w)
+    assert lsa_rows.launches == before + 1
+    assert len(got) == cfg.dec_layers
+    assert all(s.device.type == "cuda" for s in got)
+    cost = torch.stack([
+        cost_matrix(*lay, targets["kpts2d"], targets["depth"],
+                    cfg.max_depth, w) * targets["valid"][:, None].float()
+        for lay in layers]).cpu()
+    for g, c in zip(got, cost):
+        assert torch.equal(g.cpu(), lsa_rows_torch(c.transpose(1, 2)))
 
 
 # ------------------------------------------- the device warp, serving, eval

@@ -56,7 +56,7 @@ def test_port_imports_no_jax_module():
     assert "snipper_tpu_torch.ops.msda" in res["imported"]
     for name in ("cli.train", "train.step", "train.engine", "losses.criterion",
                  "matching.matcher", "data.loader", "eval.metrics",
-                 "ops.win2d", "ops.lane_chain", "scripts.probe",
+                 "ops.win2d", "ops.lane_chain", "ops.lsa", "scripts.probe",
                  "scripts.lanegather_probe", "scripts.kernel_ab",
                  "cli.eval", "data.device_preprocess", "infer.visualize",
                  "eval.posetrack_eval", "eval.coco_eval",

@@ -108,9 +108,10 @@ def test_cost_matrix_matches_jax():
 
 
 def test_match_src_idx_matches_jax_on_valid_slots():
-    """scipy on the host against the JAX device solver; padding columns
-    are all zero, so the two may order them differently: only the valid
-    slots are compared."""
+    """The ``solver="scipy"`` cross-check on the host against the JAX
+    device solver; padding columns are all zero, so the two may order them
+    differently: only the valid slots are compared (the default solver is
+    held on every slot in tests/test_torch_port_lsa.py)."""
     outputs, targets = _problem(1)
     w = JaxCriterion(JaxConfig()).match_weights
     tt = _to_torch(targets)
@@ -120,7 +121,7 @@ def test_match_src_idx_matches_jax_on_valid_slots():
     layers.insert(0, tuple(_to_torch([outputs["pred_logits"],
                                       outputs["pred_kpts2d"],
                                       outputs["pred_depth"]])))
-    got = tmatcher.match_layers(layers, tt, MAXD, w)
+    got = tmatcher.match_layers(layers, tt, MAXD, w, solver="scipy")
     assert len(got) == 3
     for (lg, kp, dp), src in zip(layers, got):
         want, _ = jmatcher.match(
