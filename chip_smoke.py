@@ -120,6 +120,22 @@ result):
    and the host scipy route; that step (forward, criterion, backward,
    update) runs under ``torch.cuda.set_sync_debug_mode("error")`` with
    one ``lsa_rows`` launch, its loss read after it.
+   Between the two, the five presets that no other phase runs
+   (canonical_t1, light_t4, light_t4_f2, jta_forecast at 540x960,
+   panoptic at 540x960 with 20 queries), each at its own width, queries,
+   frames and image size: the bench's bf16 b1 forward at full depth (one
+   launch per layer; each MSDA call and the whole forward against the
+   plain MSDA; shapes; ms a forward) and one f32 train step at two
+   encoder and two decoder layers against the plain step (loss,
+   gradients, every decoder layer's matching in one ``lsa_rows``
+   launch); ``cli.infer`` of panoptic over 960x540 frames and of
+   canonical_t1 (launches per snippet, finite tracks, every query scored
+   a person); then ``deform_dtype="float32"``: the bench's canonical_t4
+   forward (12 launches of the f32-value kernel, held against the plain
+   MSDA, against the "auto" forward in bf16 units, ms and device time of
+   both) and a bf16 canonical_t4_f2 step at two and two layers (4 + 4
+   f32-value launches, held against the plain step beside the plain
+   step with its levels summed in the other order; step ms of both).
 7. Hold the sampling probes' kernels against their plain versions on the
    card, TF32 off, at a tiny shape and at the JAX probe's full shapes:
    ``win2d_sample`` against the plain windowed2d (f32 and bf16 value at
@@ -253,7 +269,18 @@ def zero_counts():
 
     ms_deform_attn.launches = 0
     ms_deform_attn.backward_launches = 0
+    ms_deform_attn.launches_by_dtype.update(f32=0, bf16=0)
+    ms_deform_attn.backward_launches_by_dtype.update(f32=0, bf16=0)
     lsa_rows.launches = 0
+
+
+def dtype_counts():
+    """The MSDA kernels' launches since :func:`zero_counts`, by the
+    value's dtype."""
+    from snipper_tpu_torch.ops.msda import ms_deform_attn
+
+    return {"msda_forward": dict(ms_deform_attn.launches_by_dtype),
+            "msda_backward": dict(ms_deform_attn.backward_launches_by_dtype)}
 
 
 def counts():
@@ -2918,33 +2945,19 @@ def phase_harness(work, n_frames=4):
                 coco_ar=coco["AR"])
 
 
-def phase_train_agreement(tol_loss=1e-4, tol_grad=1e-3):
-    """One f32 train step's loss and gradients (canonical_t4_f2, batch 2,
-    dropout 0, TF32 off) with the kernels against the same step with the
-    plain MSDA forward and VJP on the card. Tolerances: the loss within
-    ``tol_loss`` of its size; each gradient tensor within ``tol_grad`` of
-    its largest entry (at least 1e-3 of the largest gradient anywhere):
-    f32 sums in other orders through 12 layers, and d_value's atomics.
-    The plain step also solves the matching with the plain ``lsa_rows``:
-    every decoder layer's assignment must be the same, the kernel step's
-    in one launch. Then a profiler breakdown of one bf16 train step on
-    the same model."""
+def train_fixture(cfg):
+    """A train step's inputs at ``cfg`` on the card: the seeded model
+    (sampling projections perturbed, seed 3) in train mode, its trained
+    parameters by name (the frozen set excluded, as the optimizer excludes
+    it), a batch of 2 synthetic samples and the criterion."""
     import torch
 
-    from snipper_tpu_torch.config import Config
     from snipper_tpu_torch.data.snippet import stack_batch
     from snipper_tpu_torch.data.synthetic import SyntheticDataset
     from snipper_tpu_torch.losses.criterion import SetCriterion
-    from snipper_tpu_torch.matching import matcher
-    from snipper_tpu_torch.ops import deform_attn
-    from snipper_tpu_torch.ops.lsa import lsa_rows, lsa_rows_torch
-    from snipper_tpu_torch.ops.msda import ms_deform_attn_torch
-    from snipper_tpu_torch.train.state import create_train_state, param_label
-    from snipper_tpu_torch.train.step import (batch_to_device, forward_loss,
-                                              train_step)
+    from snipper_tpu_torch.train.state import param_label
+    from snipper_tpu_torch.train.step import batch_to_device
 
-    set_tf32(False)
-    cfg = Config.canonical_t4_f2().replace(dropout=0.0)
     model = perturbed_model(cfg, seed=3).train()
     named = []
     for n, p in model.named_parameters():
@@ -2954,7 +2967,37 @@ def phase_train_agreement(tol_loss=1e-4, tol_grad=1e-3):
     ds = SyntheticDataset(cfg, n_samples=2, seed=0)
     batch = batch_to_device(stack_batch([ds[0], ds[1]]),
                             torch.device("cuda"))
-    crit = SetCriterion(cfg)
+    return model, named, batch, SetCriterion(cfg)
+
+
+def phase_train_agreement(cfg=None, name="canonical_t4_f2", tol_loss=1e-4,
+                          tol_grad=1e-3, profile=True):
+    """One f32 train step's loss and gradients (``cfg``, canonical_t4_f2
+    unless given, named ``name`` in the log; batch 2, dropout 0, TF32 off)
+    with the kernels against the same step with the plain MSDA forward and
+    VJP on the card. Tolerances: the loss within ``tol_loss`` of its size;
+    each gradient tensor within ``tol_grad`` of its largest entry (at
+    least 1e-3 of the largest gradient anywhere): f32 sums in other orders
+    through every layer, and d_value's atomics. The plain step also solves
+    the matching with the plain ``lsa_rows``: every decoder layer's
+    assignment must be the same, the kernel step's in one launch and one
+    launch of each MSDA kernel per layer (counts at 0 just before the
+    kernel step, read just after). Then, with ``profile``, a profiler
+    breakdown of one bf16 train step on the same model."""
+    import torch
+
+    from snipper_tpu_torch.config import Config
+    from snipper_tpu_torch.matching import matcher
+    from snipper_tpu_torch.ops import deform_attn
+    from snipper_tpu_torch.ops.lsa import lsa_rows_torch
+    from snipper_tpu_torch.ops.msda import ms_deform_attn_torch
+    from snipper_tpu_torch.train.state import create_train_state
+    from snipper_tpu_torch.train.step import forward_loss, train_step
+
+    set_tf32(False)
+    cfg = (cfg or Config.canonical_t4_f2()).replace(dropout=0.0)
+    n_layers = cfg.enc_layers + cfg.dec_layers
+    model, named, batch, crit = train_fixture(cfg)
 
     def step():
         total, _, _, src = forward_loss(model, crit, batch,
@@ -2973,12 +3016,15 @@ def phase_train_agreement(tol_loss=1e-4, tol_grad=1e-3):
 
     wrapper, solver = deform_attn.ms_deform_attn, matcher.lsa_rows
     matcher.lsa_rows = recorded(solver)
-    lsa_rows.launches = 0
+    # ---- the kernel step, with every kernel's count at 0 ----------------
+    zero_counts()
     try:
         loss_k, grads_k, src_k = step()
     finally:
         matcher.lsa_rows = solver
-    lsa_launches = lsa_rows.launches
+    launches = counts()
+    # ----------------------------------------------------------------------
+    lsa_launches = launches["lsa_rows"]
     deform_attn.ms_deform_attn = ms_deform_attn_torch
     matcher.lsa_rows = recorded(lsa_rows_torch)
     try:
@@ -2987,31 +3033,47 @@ def phase_train_agreement(tol_loss=1e-4, tol_grad=1e-3):
         deform_attn.ms_deform_attn, matcher.lsa_rows = wrapper, solver
     check(lsa_launches == 1 and len(solved) == 2,
           f"the kernel step launched lsa_rows {lsa_launches} times")
+    check(launches["msda_forward"] == launches["msda_backward"] == n_layers,
+          f"{name}: the kernel step's MSDA launches {launches}, expected "
+          f"{n_layers} of each")
     check(torch.equal(src_k, src_p) and torch.equal(*solved),
           "the two steps matched differently")
     g_max = max(g.abs().max().item() for g in grads_p)
     worst = (0.0, "", 0.0)
-    for (name, _), gk, gp in zip(named, grads_k, grads_p):
+    for (pname, _), gk, gp in zip(named, grads_k, grads_p):
         err = (gk - gp).abs().max().item()
         scale = max(gp.abs().max().item(), 1e-3 * g_max)
-        check(math.isfinite(err), f"non-finite gradient {name}")
+        check(math.isfinite(err), f"non-finite gradient {pname}")
         if err / scale > worst[0]:
-            worst = (err / scale, name, err)
+            worst = (err / scale, pname, err)
     loss_err = abs(loss_k - loss_p)
     check(loss_err <= tol_loss * max(1.0, abs(loss_p)),
-          f"train step loss kernel {loss_k} vs plain {loss_p}")
+          f"{name} train step loss kernel {loss_k} vs plain {loss_p}")
     check(worst[0] <= tol_grad,
-          f"train step gradients: {worst[1]} max|diff| {worst[2]} is "
-          f"{worst[0]:.3e} of its scale > {tol_grad}")
-    log(f"canonical_t4_f2 b2 f32 train step, kernels vs plain MSDA forward "
+          f"{name} train step gradients: {worst[1]} max|diff| {worst[2]} "
+          f"is {worst[0]:.3e} of its scale > {tol_grad}")
+    problems, slots = solved[0].shape
+    log(f"{name} b2 f32 train step ({cfg.input_height}x{cfg.input_width} "
+        f"enc{cfg.enc_layers}/dec{cfg.dec_layers}), kernels vs plain MSDA "
+        f"forward "
         f"and VJP on the card (TF32 off, dropout 0): loss {loss_k:.6f} vs "
         f"{loss_p:.6f} (|diff| {loss_err:.3e}, tol {tol_loss:g} relative); "
         f"{len(named)} gradient tensors, largest |grad| {g_max:.4e}, worst "
         f"{worst[1]} max|diff| {worst[2]:.3e} = {worst[0]:.3e} of its scale"
         f" (tol {tol_grad:g}); the same matching on all "
-        f"{solved[0].shape[0]} problems (every decoder layer of each "
-        f"sample), the kernel step's in {lsa_launches} lsa_rows launch")
+        f"{problems} problems of M={slots} slots and N={cfg.num_queries} "
+        f"queries (every decoder layer of each sample), the kernel step's "
+        f"in {lsa_launches} lsa_rows launch; launches {launches}")
     del grads_k, grads_p
+    res = dict(loss_kernel=loss_k, loss_plain=loss_p, loss_abs_diff=loss_err,
+               grad_worst_rel=worst[0], grad_worst_param=worst[1],
+               grad_worst_abs=worst[2], grad_max=g_max,
+               n_grads=len(named), launches=launches, problems=problems,
+               slots=slots, queries=cfg.num_queries)
+    if not profile:
+        del model, batch
+        torch.cuda.empty_cache()
+        return res
 
     # where a bf16 train step's time goes (the CLI's step: forward,
     # criterion with the matching on the card, backward, clip, AdamW), with
@@ -3030,10 +3092,367 @@ def phase_train_agreement(tol_loss=1e-4, tol_grad=1e-3):
         log(f"  {ms:9.3f} ms  x{count:<4d} {name}")
     del model, batch, state
     torch.cuda.empty_cache()
-    return dict(loss_kernel=loss_k, loss_plain=loss_p, loss_abs_diff=loss_err,
-                grad_worst_rel=worst[0], grad_worst_param=worst[1],
-                grad_worst_abs=worst[2], grad_max=g_max,
-                n_grads=len(named), step_breakdown=bd)
+    return dict(res, step_breakdown=bd)
+
+
+# ---------------------------------------------------------------- presets
+# the presets no other phase runs, each at its own width, queries, frames
+# and image size
+PRESET_RUNS = ("canonical_t1", "light_t4", "light_t4_f2", "jta_forecast",
+               "panoptic")
+# cli.infer runs of two of them: (preset, frames, width, height); 10 frames
+# make 3 snippets of 4, 7 frames 6 snippets of 1
+PRESET_INFER = (("panoptic", 10, 960, 540), ("canonical_t1", 7, 800, 600))
+# the person logit over the background one in those runs' weights, so that
+# every query scores a person (0.98) and the postprocess and the
+# association work on every query (seeded weights score none)
+PERSON_LOGIT = 4.0
+
+
+def level_shapes(cfg):
+    """The three backbone levels' (h, w) at ``cfg``'s input: strides 8, 16
+    and 32, rounded up as the strided convolutions round."""
+    return [(-(-cfg.input_height // s), -(-cfg.input_width // s))
+            for s in (8, 16, 32)]
+
+
+def check_forward_shapes(cfg, out, label):
+    """``pred_*`` and the heatmaps of a batch-1 forward of ``cfg``: shapes
+    and finite values."""
+    import torch
+
+    q, t1, k = cfg.num_queries, cfg.total_frames, cfg.num_kpts
+    want = {"pred_logits": (1, q, t1, 2), "pred_kpts2d": (1, q, t1, k, 3),
+            "pred_depth": (1, q, t1, k, 1)}
+    for key, shape in want.items():
+        check(tuple(out[key].shape) == shape,
+              f"{label}: {key} {tuple(out[key].shape)}, expected {shape}")
+        check(bool(torch.isfinite(out[key]).all()),
+              f"{label}: non-finite {key}")
+    hm = [tuple(h.shape) for h in out["heatmaps"]]
+    want_hm = [(1, cfg.num_frames, h, w, cfg.nheads, k)
+               for h, w in level_shapes(cfg)]
+    check(hm == want_hm, f"{label}: heatmaps {hm}, expected {want_hm}")
+    check(all(bool(torch.isfinite(h).all()) for h in out["heatmaps"]),
+          f"{label}: non-finite heatmaps")
+
+
+def preset_infer(work, name, n_frames, width, height):
+    """``cli.infer`` on ``name`` over ``n_frames`` synthetic JPEGs of
+    ``width`` x ``height`` with seeded weights (sampling projections
+    perturbed, every query a person), counts set to 0 just before and read
+    just after: one ``msda_forward`` launch per layer and snippet, finite
+    tracks of the preset's keypoints."""
+    import numpy as np
+    import torch
+
+    from snipper_tpu_torch.cli import infer as infer_cli
+    from snipper_tpu_torch.config import Config
+
+    cfg = getattr(Config, name)()
+    frame_dir = os.path.join(work, f"frames_{name}")
+    write_frames(frame_dir, n_frames, width=width, height=height)
+    model = perturbed_model(cfg)
+    with torch.no_grad():
+        model.class_embed.bias.copy_(torch.tensor([0.0, PERSON_LOGIT]))
+    ckpt = os.path.join(work, f"{name}_seed0.pt")
+    torch.save({"params": model.state_dict(), "step": 0}, ckpt)
+    del model
+    out_dir = os.path.join(work, f"out_{name}")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # ---- cli.infer, with every kernel's count at 0 -----------------------
+    zero_counts()
+    stats = infer_cli.main([
+        "--preset", name, "--data_dir", frame_dir, "--output_dir", out_dir,
+        "--seq_gap", "1", "--resume", ckpt, "--device", "cuda"])
+    launches = counts()
+    # ----------------------------------------------------------------------
+    n = stats["snippets"]
+    n_layers = cfg.enc_layers + cfg.dec_layers
+    check(n >= 2 and launches["msda_forward"] == n_layers * n,
+          f"{name} cli.infer: {launches} over {n} snippets, expected "
+          f"{n_layers} msda_forward launches per snippet")
+    with open(os.path.join(out_dir, "tracks.pkl"), "rb") as f:
+        tracks = pickle.load(f)
+    per_frame = []
+    for pids, data in tracks["frames"].values():
+        check(data.ndim == 3 and data.shape[1:] == (cfg.num_kpts, 4)
+              and len(pids) == data.shape[0],
+              f"{name} cli.infer: track data shape {data.shape}")
+        check(bool(np.all(np.isfinite(data))),
+              f"{name} cli.infer: non-finite tracks")
+        per_frame.append(data.shape[0])
+    check(tracks["max_pid"] > 0 and per_frame and min(per_frame) > 0,
+          f"{name} cli.infer: {tracks['max_pid']} identities, persons per "
+          f"frame {per_frame}")
+    fwd_ms = statistics.median(stats["forward_ms"][1:])
+    log(f"{name} cli.infer ({width}x{height} frames, input "
+        f"{cfg.input_width}x{cfg.input_height}, enc{cfg.enc_layers}/"
+        f"dec{cfg.dec_layers}, {cfg.num_queries} queries, T="
+        f"{cfg.num_frames}): {n} snippets, launches {launches} "
+        f"({launches['msda_forward'] / n:g} msda_forward a snippet); "
+        f"{tracks['max_pid']} identities over {len(per_frame)} frames, "
+        f"{min(per_frame)}-{max(per_frame)} persons a frame, all finite; "
+        f"forward + readback {fwd_ms:.2f} ms a snippet (median, first "
+        f"excluded)")
+    return dict(snippets=n, launches=launches, identities=tracks["max_pid"],
+                frames=len(per_frame), persons=per_frame, forward_ms=fwd_ms)
+
+
+def deform_f32_forward(card):
+    """(d) The bench's bf16 canonical_t4 b1 forward on the same seeded
+    weights (sampling projections perturbed) with ``deform_dtype`` "auto"
+    and "float32": each held against the plain MSDA on the card
+    (:func:`hold_bench_forward`), its 12 launches all of the bf16-value
+    kernel under "auto" and of the f32-value kernel under "float32"; the
+    two forwards' difference in bf16 units; ms a forward of each (CUDA
+    events, alternating) and their device time by kernel (torch.profiler,
+    ``breakdown``)."""
+    import numpy as np
+    import torch
+
+    from snipper_tpu_torch import bench
+    from snipper_tpu_torch.config import Config
+    from snipper_tpu_torch.models.transformer import TemporalDeformAttn
+
+    set_tf32(False)
+    cfg = Config.canonical_t4()
+    n_layers = cfg.enc_layers + cfg.dec_layers
+    state = perturbed_model(cfg).state_dict()
+    x = bench.input_batch(np.random.default_rng(0), cfg, 1, "cuda")
+    models, res = {}, {}
+    for dd in ("auto", "float32"):
+        c = cfg.replace(deform_dtype=dd)
+        models[dd] = model = bench.bf16_net(c, "cuda", state)
+        attns = [m for m in model.modules()
+                 if isinstance(m, TemporalDeformAttn)]
+        check(len(attns) == n_layers
+              and all(m.sample_dtype == dd for m in attns),
+              f"deform_dtype {dd} did not reach every sampling module")
+        held = hold_bench_forward(model, x, n_layers,
+                                  f"canonical_t4 bf16 forward ({dd})")
+        kind = "f32" if dd == "float32" else "bf16"
+        check(held["by_dtype"][kind] == n_layers
+              and sum(held["by_dtype"].values()) == n_layers,
+              f"canonical_t4 bf16 forward ({dd}): msda_forward launches by "
+              f"value dtype {held['by_dtype']}, expected {n_layers} {kind}")
+        check_forward_shapes(cfg, held["got"], f"canonical_t4 ({dd})")
+        res[dd] = held
+    del state
+    diff = {}
+    for k in ("pred_logits", "pred_kpts2d", "pred_depth"):
+        a = res["float32"]["got"][k].float()
+        b = res["auto"]["got"][k].float()
+        scale = max(1.0, b.abs().max().item()) * BF16_UNIT
+        diff[k] = dict(max=(a - b).abs().max().item() / scale,
+                       rms=(a - b).pow(2).mean().sqrt().item() / scale)
+    times = {"auto": [], "float32": []}
+    for order in (("auto", "float32"), ("float32", "auto")):
+        for dd in order:
+            times[dd].append(time_ms(
+                lambda: bench.forward(models[dd], x), reps=10))
+    bds = {dd: breakdown(lambda: bench.forward(models[dd], x))
+           for dd in ("auto", "float32")}
+    ms = {dd: statistics.median(t) for dd, t in times.items()}
+    log(f"canonical_t4 b1 bf16 forward (the bench's), deform_dtype float32"
+        f" vs auto on the same weights and input (TF32 off): msda_forward "
+        f"launches by value dtype {res['float32']['by_dtype']} / "
+        f"{res['auto']['by_dtype']}; kernel vs plain MSDA per call within "
+        f"{max(res['float32']['call_units']):.2e} / "
+        f"{max(res['auto']['call_units']):.3f} bf16 units, whole forward "
+        f"rms {json.dumps(res['float32']['rms'])} / "
+        f"{json.dumps(res['auto']['rms'])}; float32 against auto "
+        f"{json.dumps(diff)} bf16 units; {ms['float32']:.3f} / "
+        f"{ms['auto']:.3f} ms a forward (CUDA events, {times}); device "
+        f"{bds['float32']['device_ms']:.3f} / {bds['auto']['device_ms']:.3f}"
+        f" ms of {bds['float32']['kernel_launches']} / "
+        f"{bds['auto']['kernel_launches']} kernel launches, msda_forward "
+        f"{bds['float32']['msda_ms']:.3f} / {bds['auto']['msda_ms']:.3f} "
+        f"ms, busy {bds['float32']['busy_share']:.3f} / "
+        f"{bds['auto']['busy_share']:.3f} ({card})")
+    del models, res
+    torch.cuda.empty_cache()
+    return dict(launches_by_dtype={"msda_forward": {"f32": n_layers,
+                                                    "bf16": 0}},
+                diff_units=diff, ms=ms, times=times,
+                device_ms={dd: b["device_ms"] for dd, b in bds.items()},
+                msda_ms={dd: b["msda_ms"] for dd, b in bds.items()},
+                kernel_launches={dd: b["kernel_launches"]
+                                 for dd, b in bds.items()})
+
+
+def _grad_gap(grads, ref):
+    """``||grads - ref|| / ||ref||`` over all tensors."""
+    num = sum((g - r).float().pow(2).sum().item() for g, r in zip(grads, ref))
+    den = sum(r.float().pow(2).sum().item() for r in ref)
+    return math.sqrt(num / den)
+
+
+def deform_f32_step(card, tol_floor=1e-2):
+    """(e) One bf16 mixed-precision canonical_t4_f2 step at CUT_DEPTH,
+    batch 2 (dropout 0, TF32 off), with ``deform_dtype="float32"``: the
+    kernel step (counts at 0 just before, read just after: one f32-value
+    launch of each MSDA kernel per layer, no bf16 one) against the same
+    step with the plain MSDA forward, its VJP and the plain assignment on
+    the card, beside the plain step with its levels summed in the other
+    order (how far a bf16 step carries an f32 rounding of one sampling
+    output): the losses finite, the kernel step's loss and its gradients
+    (``||g - g_plain|| / ||g_plain||`` over all tensors) within twice the
+    reordered step's distance or ``tol_floor`` of their size, the same
+    matching. Then the update step's ms (``train_step``, CUDA events) under
+    "float32" and "auto" in turns, with its launches by value dtype."""
+    import torch
+
+    from snipper_tpu_torch.config import Config
+    from snipper_tpu_torch.matching import matcher
+    from snipper_tpu_torch.ops import deform_attn
+    from snipper_tpu_torch.ops.lsa import lsa_rows_torch
+    from snipper_tpu_torch.ops.msda import ms_deform_attn_torch
+    from snipper_tpu_torch.train.state import create_train_state
+    from snipper_tpu_torch.train.step import forward_loss, train_step
+
+    set_tf32(False)
+    base = Config.canonical_t4_f2().replace(dropout=0.0, **CUT_DEPTH)
+    n_layers = base.enc_layers + base.dec_layers
+    cfg = base.replace(deform_dtype="float32")
+    model, named, batch, crit = train_fixture(cfg)
+    params = [p for _, p in named]
+
+    def step():
+        total, _, _, src = forward_loss(model, crit, batch,
+                                        mixed_precision=True)
+        return total.item(), torch.autograd.grad(total, params), src.cpu()
+
+    wrapper, solver = deform_attn.ms_deform_attn, matcher.lsa_rows
+    # ---- the kernel step, with every kernel's count at 0 ----------------
+    zero_counts()
+    loss_k, grads_k, src_k = step()
+    launches, by_dtype = counts(), dtype_counts()
+    # ----------------------------------------------------------------------
+    runs = {}
+    for name, fn in (("plain", ms_deform_attn_torch),
+                     ("reordered", msda_levels_reversed)):
+        deform_attn.ms_deform_attn, matcher.lsa_rows = fn, lsa_rows_torch
+        try:
+            runs[name] = step()
+        finally:
+            deform_attn.ms_deform_attn, matcher.lsa_rows = wrapper, solver
+    want = {"f32": n_layers, "bf16": 0}
+    check(by_dtype == {"msda_forward": want, "msda_backward": want}
+          and launches["lsa_rows"] == 1,
+          f"the float32 bf16 step's launches {launches}, by value dtype "
+          f"{by_dtype}, expected {n_layers} f32 of each MSDA kernel")
+    loss_p, grads_p, src_p = runs["plain"]
+    loss_r, grads_r, src_r = runs["reordered"]
+    check(all(math.isfinite(v) for v in (loss_k, loss_p, loss_r)),
+          f"non-finite loss {loss_k} / {loss_p} / {loss_r}")
+    gap_k, gap_r = _grad_gap(grads_k, grads_p), _grad_gap(grads_r, grads_p)
+    loss_tol = max(2 * abs(loss_r - loss_p), tol_floor * abs(loss_p))
+    grad_tol = max(2 * gap_r, tol_floor)
+    check(math.isfinite(gap_k) and gap_k <= grad_tol
+          and abs(loss_k - loss_p) <= loss_tol
+          and torch.equal(src_k, src_p),
+          f"the float32 bf16 step, kernels vs plain: loss {loss_k} vs "
+          f"{loss_p} (reordered {loss_r}, tol {loss_tol}), gradient gap "
+          f"{gap_k} (reordered {gap_r}, tol {grad_tol}), the same matching "
+          f"{torch.equal(src_k, src_p)} (reordered "
+          f"{torch.equal(src_r, src_p)})")
+    del grads_k, grads_p, grads_r, runs
+    # the update step under each setting, in turns
+    states = {"float32": create_train_state(cfg, model)}
+    auto = perturbed_model(base, seed=3)
+    states["auto"] = create_train_state(base, auto)
+    gen = torch.Generator().manual_seed(0)
+    times, step_counts = {"auto": [], "float32": []}, {}
+    for order in (("float32", "auto"), ("auto", "float32")):
+        for dd in order:
+            zero_counts()
+            times[dd].append(time_ms(
+                lambda: train_step(states[dd], crit, batch, gen), reps=5,
+                warmup=1))
+            step_counts.setdefault(dd, []).append(dtype_counts())
+    for dd, cs in step_counts.items():
+        kind = "f32" if dd == "float32" else "bf16"
+        check(all(c["msda_forward"][kind] == c["msda_backward"][kind] > 0
+                  and sum(c["msda_forward"].values())
+                  == c["msda_forward"][kind] for c in cs),
+              f"timed {dd} steps launched by value dtype {cs}")
+    ms = {dd: statistics.median(t) for dd, t in times.items()}
+    log(f"canonical_t4_f2 b2 bf16 mixed-precision step at "
+        f"enc{base.enc_layers}/dec{base.dec_layers} with deform_dtype "
+        f"float32, kernels vs plain MSDA, VJP and assignment on the card "
+        f"(TF32 off, dropout 0): launches {launches}, by value dtype "
+        f"{by_dtype}; loss {loss_k:.6f} vs {loss_p:.6f} (reordered "
+        f"{loss_r:.6f}); gradients {gap_k:.3e} of their norm from the plain"
+        f" step's (reordered {gap_r:.3e}; tol {grad_tol:.3e}); the same "
+        f"matching; a train step {ms['float32']:.2f} ms with float32, "
+        f"{ms['auto']:.2f} with auto (CUDA events, {times}) ({card})")
+    del model, auto, states, batch
+    torch.cuda.empty_cache()
+    return dict(launches=launches, launches_by_dtype=by_dtype,
+                loss_kernel=loss_k, loss_plain=loss_p, loss_reordered=loss_r,
+                grad_gap=gap_k, grad_gap_reordered=gap_r, step_ms=ms,
+                times=times)
+
+
+def phase_presets(card):
+    """The five presets that no other phase runs (``PRESET_RUNS``), each at
+    its own width, queries, frames and image size: (a) the bench's bf16
+    b1 forward at full depth on seeded weights with the sampling
+    projections perturbed (:func:`hold_bench_forward`: ``enc + dec``
+    launches, every call and the whole forward held against the plain
+    MSDA on the card), its shapes and ms a forward (CUDA events); (b) one
+    f32 train step at CUT_DEPTH, batch 2, against the plain step
+    (:func:`phase_train_agreement`: loss, gradients, every decoder layer's
+    matching in one ``lsa_rows`` launch). (c) ``cli.infer`` of panoptic at
+    960x540 and of canonical_t1 (:func:`preset_infer`). Then
+    ``deform_dtype="float32"`` on the card: (d) :func:`deform_f32_forward`,
+    (e) :func:`deform_f32_step`."""
+    import numpy as np
+    import torch
+
+    from snipper_tpu_torch import bench
+    from snipper_tpu_torch.config import Config
+
+    res = {"forward": {}, "train_step": {}, "infer": {}}
+    for name in PRESET_RUNS:
+        cfg = getattr(Config, name)()
+        n_layers = cfg.enc_layers + cfg.dec_layers
+        # (a) the bench's forward at full depth
+        set_tf32(False)
+        state = perturbed_model(cfg).state_dict()
+        model = bench.bf16_net(cfg, "cuda", state)
+        del state
+        x = bench.input_batch(np.random.default_rng(0), cfg, 1, "cuda")
+        held = hold_bench_forward(model, x, n_layers,
+                                  f"{name} bf16 forward")
+        check(held["by_dtype"] == {"f32": 0, "bf16": n_layers},
+              f"{name}: msda_forward by value dtype {held['by_dtype']}")
+        check_forward_shapes(cfg, held["got"], f"{name} bf16 forward")
+        ms = time_ms(lambda: bench.forward(model, x), reps=10)
+        del model, held["got"]
+        torch.cuda.empty_cache()
+        res["forward"][name] = dict(held, ms=ms)
+        log(f"{name} b1 bf16 forward (the bench's; {cfg.input_width}x"
+            f"{cfg.input_height}, levels {level_shapes(cfg)}, enc"
+            f"{cfg.enc_layers}/dec{cfg.dec_layers}, {cfg.num_queries} "
+            f"queries, T={cfg.num_frames}+{cfg.num_future_frames}): "
+            f"{held['per_forward']} msda_forward launches a forward; kernel "
+            f"vs plain MSDA per call within {max(held['call_units']):.3f} "
+            f"bf16 units, whole forward rms {json.dumps(held['rms'])} (max "
+            f"{json.dumps(held['units'])}); {ms:.3f} ms a forward (CUDA "
+            f"events, TF32 off) ({card})")
+        # (b) one f32 train step at CUT_DEPTH, kernels against plain
+        res["train_step"][name] = phase_train_agreement(
+            cfg.replace(**CUT_DEPTH), name=name, profile=False)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_presets_") as work:
+        for name, n_frames, width, height in PRESET_INFER:
+            res["infer"][name] = preset_infer(work, name, n_frames, width,
+                                              height)
+    res["f32_forward"] = deform_f32_forward(card)
+    res["f32_step"] = deform_f32_step(card)
+    return res
 
 
 # ------------------------------------------------------------- matching
@@ -3453,6 +3872,90 @@ def bench_child(out_json):
     return rc
 
 
+def hold_bench_forward(model, x, n_layers, label):
+    """The bench's forward (``bench.forward``) of ``model`` on ``x``, held
+    against the plain MSDA on the card: (a) each of its MSDA calls, kernel
+    against plain on the inputs that call received, within one rounding to
+    the value's dtype (``TOL_BF16_REL`` of its scale for a bf16 value,
+    ``TOL_F32`` of it for an f32 one); (b) the whole forward with the
+    kernel against it with the plain MSDA, each ``pred_*``'s rms
+    difference within twice that of the plain forward against itself with
+    its levels summed in the other order (at least ``TOL_BENCH_RMS_UNITS``
+    bf16 units of its scale). The counts are set to 0 just before the
+    kernel's forward and read just after: ``n_layers`` launches. Returns
+    that forward's outputs (``got``), its launches (``per_forward``, and
+    ``by_dtype`` of the value) and the differences in bf16 units."""
+    import torch
+
+    from snipper_tpu_torch import bench
+    from snipper_tpu_torch.ops import deform_attn
+    from snipper_tpu_torch.ops.msda import ms_deform_attn, ms_deform_attn_torch
+
+    # each MSDA call of the forward, its inputs kept
+    calls = []
+    wrapper = deform_attn.ms_deform_attn
+
+    def keep(value, shapes, loc, attn):
+        out = wrapper(value, shapes, loc, attn)
+        calls.append((value.clone(), shapes, loc.clone(), attn.clone(),
+                      out.clone()))
+        return out
+
+    deform_attn.ms_deform_attn = keep
+    try:
+        zero_counts()
+        got = bench.forward(model, x)
+        torch.cuda.synchronize()
+        per_forward = ms_deform_attn.launches
+        by_dtype = dict(ms_deform_attn.launches_by_dtype)
+    finally:
+        deform_attn.ms_deform_attn = wrapper
+    check(per_forward == len(calls) == n_layers,
+          f"{label} launched msda_forward {per_forward} times for "
+          f"{len(calls)} sampling calls, expected {n_layers}")
+    # (a) every call, kernel against plain on the inputs it received
+    call_units = []
+    for value, shapes, loc, attn, out in calls:
+        ref = ms_deform_attn_torch(value, shapes, loc, attn).float()
+        scale = max(1.0, ref.abs().max().item())
+        err = (out.float() - ref).abs().max().item()
+        tol = (TOL_F32 if value.dtype == torch.float32
+               else TOL_BF16_REL) * scale
+        check(out.dtype == value.dtype and math.isfinite(err) and err <= tol,
+              f"{label}, MSDA call {len(call_units)} ({value.dtype}): "
+              f"kernel vs plain max abs diff {err} > {tol}")
+        call_units.append(err / scale / BF16_UNIT)
+    del calls
+    # (b) the whole forward, kernel against plain MSDA, beside the plain
+    # forward against itself with its levels summed in the other order:
+    # how far the bf16 model carries one bf16 rounding of an MSDA output
+    outs = {}
+    for name, fn in (("plain", ms_deform_attn_torch),
+                     ("reordered", msda_levels_reversed)):
+        deform_attn.ms_deform_attn = fn
+        try:
+            outs[name] = bench.forward(model, x)
+        finally:
+            deform_attn.ms_deform_attn = wrapper
+    units, rms = {}, {}
+    for pair, (a, b) in (("kernel", (got, outs["plain"])),
+                         ("reordered", (outs["reordered"], outs["plain"]))):
+        for k in ("pred_logits", "pred_kpts2d", "pred_depth"):
+            check(bool(torch.isfinite(a[k]).all()),
+                  f"{label} ({pair}): non-finite {k}")
+            d = a[k].float() - b[k].float()
+            scale = max(1.0, b[k].float().abs().max().item()) * BF16_UNIT
+            units[f"{pair}/{k}"] = d.abs().max().item() / scale
+            rms[f"{pair}/{k}"] = d.pow(2).mean().sqrt().item() / scale
+    check(all(rms[f"kernel/{k}"] <= max(TOL_BENCH_RMS_UNITS,
+                                        2 * rms[f"reordered/{k}"])
+              for k in ("pred_logits", "pred_kpts2d", "pred_depth")),
+          f"{label}, kernel vs plain MSDA: rms {rms} bf16 units (max "
+          f"{units})")
+    return dict(got=got, per_forward=per_forward, by_dtype=by_dtype,
+                call_units=call_units, units=units, rms=rms)
+
+
 def phase_bench(work, card):
     """The bench (``python -m snipper_tpu_torch.bench``) in a fresh process:
     exit 0, one JSON line with no FAIL, ``sampling_overflow`` 0, numbers
@@ -3475,8 +3978,6 @@ def phase_bench(work, card):
 
     from snipper_tpu_torch import bench
     from snipper_tpu_torch.config import Config
-    from snipper_tpu_torch.ops import deform_attn
-    from snipper_tpu_torch.ops.msda import ms_deform_attn, ms_deform_attn_torch
 
     log("bench (python -m snipper_tpu_torch.bench):")
     out_json = os.path.join(work, "bench_launches.json")
@@ -3536,64 +4037,14 @@ def phase_bench(work, card):
         t.dtype == torch.bfloat16
         for t in (*model.parameters(), *model.buffers())),
         "the bench's forward holds a weight or input that is not bf16")
-    # each MSDA call of the bench's forward, its inputs kept
-    calls = []
-    wrapper = deform_attn.ms_deform_attn
-
-    def keep(value, shapes, loc, attn):
-        out = wrapper(value, shapes, loc, attn)
-        calls.append((value.clone(), shapes, loc.clone(), attn.clone(),
-                      out.clone()))
-        return out
-
-    deform_attn.ms_deform_attn = keep
-    try:
-        ms_deform_attn.launches = 0
-        got = bench.forward(model, x)
-        torch.cuda.synchronize()
-        per_forward = ms_deform_attn.launches
-    finally:
-        deform_attn.ms_deform_attn = wrapper
-    check(per_forward == len(calls) == layers("canonical_t4"),
-          f"the bench's forward launched msda_forward {per_forward} times")
-    # (a) every call, kernel against plain on the inputs it received
-    call_units = []
-    for value, shapes, loc, attn, out in calls:
-        ref = ms_deform_attn_torch(value, shapes, loc, attn).float()
-        scale = max(1.0, ref.abs().max().item())
-        err = (out.float() - ref).abs().max().item()
-        check(out.dtype == value.dtype == torch.bfloat16 and math.isfinite(
-            err) and err <= TOL_BF16_REL * scale,
-              f"the bench's forward, MSDA call {len(call_units)}: kernel vs"
-              f" plain max abs diff {err} > {TOL_BF16_REL * scale}")
-        call_units.append(err / scale / BF16_UNIT)
-    del calls
-    # (b) the whole forward, kernel against plain MSDA, beside the plain
-    # forward against itself with its levels summed in the other order:
-    # how far the bf16 model carries one bf16 rounding of an MSDA output
-    outs = {}
-    for name, fn in (("plain", ms_deform_attn_torch),
-                     ("reordered", msda_levels_reversed)):
-        deform_attn.ms_deform_attn = fn
-        try:
-            outs[name] = bench.forward(model, x)
-        finally:
-            deform_attn.ms_deform_attn = wrapper
-    units, rms = {}, {}
-    for pair, (a, b) in (("kernel", (got, outs["plain"])),
-                         ("reordered", (outs["reordered"], outs["plain"]))):
-        for k in ("pred_logits", "pred_kpts2d", "pred_depth"):
-            check(bool(torch.isfinite(a[k]).all()),
-                  f"the bench's forward ({pair}): non-finite {k}")
-            d = a[k].float() - b[k].float()
-            scale = max(1.0, b[k].float().abs().max().item()) * BF16_UNIT
-            units[f"{pair}/{k}"] = d.abs().max().item() / scale
-            rms[f"{pair}/{k}"] = d.pow(2).mean().sqrt().item() / scale
-    check(all(rms[f"kernel/{k}"] <= max(TOL_BENCH_RMS_UNITS,
-                                        2 * rms[f"reordered/{k}"])
-              for k in ("pred_logits", "pred_kpts2d", "pred_depth")),
-          f"the bench's forward, kernel vs plain MSDA: rms {rms} bf16 "
-          f"units (max {units})")
+    held = hold_bench_forward(model, x, layers("canonical_t4"),
+                              "the bench's forward")
+    per_forward, call_units = held["per_forward"], held["call_units"]
+    units, rms = held["units"], held["rms"]
+    check(held["by_dtype"] == {"f32": 0, "bf16": per_forward},
+          f"the bench's forward launched msda_forward {held['by_dtype']} "
+          f"by value dtype")
+    del held
     # where the bench's forward spends its time
     bd = breakdown(lambda: bench.forward(model, x))
     del model
@@ -3952,6 +4403,8 @@ def main() -> int:
         mg_res = timed("multi_gpu", phase_multi_gpu, work, card)
     # 6. a train step, kernels against the plain MSDA and matching
     agree_res = timed("train_agreement", phase_train_agreement)
+    # 6b. the presets no other phase runs, and deform_dtype="float32"
+    presets_res = timed("presets", phase_presets, card)
     # 6a. the assignment kernel, and a train step with no synchronisation
     match_res = timed("matching", phase_matching, card)
     # 8. the probe path
@@ -4012,6 +4465,22 @@ def main() -> int:
         "runbook_launches": runbook_res["launches"],
         "bench_launches": bench_res["launches"]["msda_forward"],
         "bench_per_forward_launches": bench_res["per_forward"],
+        "presets_launches": {
+            name: {"bf16_forward": presets_res["forward"][name][
+                       "per_forward"],
+                   "f32_train_step": presets_res["train_step"][name][
+                       "launches"]["msda_forward"],
+                   **({"infer": presets_res["infer"][name]["launches"][
+                       "msda_forward"]}
+                      if name in presets_res["infer"] else {})}
+            for name in PRESET_RUNS},
+        "f32_value_launches": {
+            "canonical_t4_bf16_forward_deform_float32":
+                presets_res["f32_forward"]["launches_by_dtype"][
+                    "msda_forward"]["f32"],
+            "canonical_t4_f2_cut_bf16_step_deform_float32":
+                presets_res["f32_step"]["launches_by_dtype"][
+                    "msda_forward"]["f32"]},
         "shapes": shapes_res,
     }, {
         "name": "msda_backward",
@@ -4046,6 +4515,14 @@ def main() -> int:
             mg_res["torchrun"]["train_launches"]["msda_backward"],
         "probe_train_launches": probe_res["train_launches"][1],
         "bench_launches": bench_res["launches"]["msda_backward"],
+        "presets_launches": {
+            name: {"f32_train_step": presets_res["train_step"][name][
+                "launches"]["msda_backward"]}
+            for name in PRESET_RUNS},
+        "f32_value_launches": {
+            "canonical_t4_f2_cut_bf16_step_deform_float32":
+                presets_res["f32_step"]["launches_by_dtype"][
+                    "msda_backward"]["f32"]},
         "shapes": bwd_res,
     }]
     kernels.append({
@@ -4090,6 +4567,13 @@ def main() -> int:
         "probe_train_launches": probe_res["train_launches"][2],
         "bench_launches": bench_res["launches"]["lsa_rows"],
         "sync_checked_step_launches": match_res["step_launches"],
+        "presets_launches": {
+            name: {"f32_train_step": r["launches"]["lsa_rows"],
+                   "problems": r["problems"], "M": r["slots"],
+                   "N": r["queries"]}
+            for name, r in presets_res["train_step"].items()},
+        "deform_float32_step_launches":
+            presets_res["f32_step"]["launches"]["lsa_rows"],
     })
     k2 = win_res["win2d_sample"]
     kernels.append({
@@ -4149,6 +4633,8 @@ def main() -> int:
         if chain:
             kernels[-1]["issue_ms"] = head["issue_ms"]
             kernels[-1]["sm_clock_mhz"] = head["sm_clock_mhz"]
+    preset_ms = {k: round(v["ms"], 3)
+                 for k, v in presets_res["forward"].items()}
     log(f"card: {card}; inference path "
         f"{main_res['steady_snippets_per_s']:.3f} snippets/s (host warp), "
         f"{serve_res['steady_snippets_per_s']:.3f} (--device_preprocess), "
@@ -4191,6 +4677,13 @@ def main() -> int:
         f"{mg_res['torchrun']['infer_snippets_per_s']:.3f} snippets/s; "
         f"bench value {bench_res['line']['value']} snippets/s, train "
         f"{bench_res['line']['train_step_ms_T4F2_bf16mp_b2']} ms/step; "
+        f"presets' bf16 forwards {json.dumps(preset_ms)} ms; deform_dtype "
+        f"float32 / auto: canonical_t4 bf16 forward "
+        f"{presets_res['f32_forward']['ms']['float32']:.3f} / "
+        f"{presets_res['f32_forward']['ms']['auto']:.3f} ms, "
+        f"canonical_t4_f2 enc2/dec2 bf16 step "
+        f"{presets_res['f32_step']['step_ms']['float32']:.2f} / "
+        f"{presets_res['f32_step']['step_ms']['auto']:.2f} ms; "
         f"phases {json.dumps(phase_s)} s; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

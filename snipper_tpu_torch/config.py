@@ -14,6 +14,14 @@ model then takes the mean of the value over its tokens in place of the
 sampling, as the JAX model does (not exact; the probe's ``split`` times
 the forward without the sampling with it). They stay so that presets,
 command lines and ``validate`` match the JAX package's.
+
+``deform_dtype`` is honoured as JAX honours it
+(``models/transformer.py::TemporalDeformAttn``): ``"float32"`` casts the
+value, the sampling locations and the attention logits to f32 before the
+sampling, so that under bf16 the neighbour-frame sum, the softmax, the
+division by the frame count and the sampling run in f32 (the f32-value
+kernels on the card), and casts the output back to the activations'
+dtype; ``"auto"`` samples in the activations' dtype.
 """
 
 from __future__ import annotations
@@ -52,7 +60,8 @@ class Config:
     dec_n_points: int = 4
     aux_loss: bool = True
 
-    # --- deformable attention (TPU formulations; ignored by the port) ------
+    # --- deformable attention (TPU formulations, ignored by the port but
+    # deform_impl="skip"; deform_dtype is honoured) -------------------------
     deform_impl: str = "xla"
     deform_dtype: str = "auto"
     sampling_margin: int = 5

@@ -66,7 +66,7 @@ class Snipper(nn.Module):
             enc_n_points=cfg.enc_n_points, dec_n_points=cfg.dec_n_points,
             n_frames=cfg.num_frames, n_future_frames=cfg.num_future_frames,
             num_keypoints=cfg.num_kpts, dropout=cfg.dropout,
-            impl=cfg.deform_impl)
+            impl=cfg.deform_impl, sample_dtype=cfg.deform_dtype)
         # heads shared across decoder layers (reference models/model.py:93-104)
         self.class_embed = nn.Linear(C, 2)
         for j in range(cfg.num_kpts - 1):

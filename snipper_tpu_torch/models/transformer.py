@@ -56,12 +56,23 @@ def _offset_bias_init(n_heads: int, n_levels: int,
 
 class TemporalDeformAttn(nn.Module):
     """Multi-scale temporal deformable attention: one offset/weight
-    projection pair shared by the sampled frames."""
+    projection pair shared by the sampled frames.
+
+    ``sample_dtype`` is ``cfg.deform_dtype``, JAX's field of that name
+    (``snipper_tpu/models/transformer.py:67,113-122``): with
+    ``"float32"`` the value, the locations and the logits are cast to f32
+    before the sampling, so that under bf16 the neighbour-frame sum, the
+    softmax, the division by the frame count and the sampling run in f32
+    (the f32-value kernels on the card); the output is cast back to the
+    query's dtype before ``output_proj``. ``"auto"`` samples in the
+    value's own dtype."""
 
     def __init__(self, d_model: int, n_levels: int, n_heads: int,
-                 n_points: int, n_frames: int, impl: str = "xla"):
+                 n_points: int, n_frames: int, impl: str = "xla",
+                 sample_dtype: str = "auto"):
         super().__init__()
         self.impl = impl  # cfg.deform_impl: "skip" elides the sampling
+        self.sample_dtype = sample_dtype
         self.d_model, self.n_levels = d_model, n_levels
         self.n_heads, self.n_points = n_heads, n_points
         self.head_dim = d_model // n_heads
@@ -106,9 +117,12 @@ class TemporalDeformAttn(nn.Module):
 
         logits = self.attention_weights(query).reshape(B, T1, Lq, H, L, P)
         adjacency = temporal_adjacency(self.n_frames, T1)
+        if self.sample_dtype == "float32":
+            value, loc, logits = value.float(), loc.float(), logits.float()
         out, overflow = temporal_deform_sample(value, spatial_shapes, loc,
                                                logits, adjacency, self.impl)
-        out = row_parallel(self.output_proj, out, self.mesh)
+        # a no-op unless the sampling ran in f32 under a bf16 query
+        out = row_parallel(self.output_proj, out.to(query.dtype), self.mesh)
         if return_attn:
             attn = torch.softmax(logits.reshape(B, T1, Lq, H, L * P),
                                  -1).reshape(B, T1, Lq, H, L, P)
@@ -167,11 +181,12 @@ class TorchMultiheadAttention(nn.Module):
 
 class EncoderLayer(nn.Module):
     def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points, n_frames,
-                 dropout=0.1, impl="xla"):
+                 dropout=0.1, impl="xla", sample_dtype="auto"):
         super().__init__()
         self.dropout = dropout
         self.self_attn = TemporalDeformAttn(d_model, n_levels, n_heads,
-                                            n_points, n_frames, impl)
+                                            n_points, n_frames, impl,
+                                            sample_dtype)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = tag(nn.Linear(d_model, d_ffn), "xavier")
         self.linear2 = tag(nn.Linear(d_ffn, d_model), "xavier")
@@ -197,13 +212,14 @@ class EncoderLayer(nn.Module):
 
 class DecoderLayer(nn.Module):
     def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points, n_frames,
-                 dropout=0.1, impl="xla"):
+                 dropout=0.1, impl="xla", sample_dtype="auto"):
         super().__init__()
         self.dropout = dropout
         self.self_attn = TorchMultiheadAttention(d_model, n_heads, dropout)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.cross_attn = TemporalDeformAttn(d_model, n_levels, n_heads,
-                                             n_points, n_frames, impl)
+                                             n_points, n_frames, impl,
+                                             sample_dtype)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = tag(nn.Linear(d_model, d_ffn), "xavier")
         self.linear2 = tag(nn.Linear(d_ffn, d_model), "xavier")
@@ -265,7 +281,8 @@ class DeformableTransformer(nn.Module):
     def __init__(self, d_model, n_heads, num_encoder_layers,
                  num_decoder_layers, dim_feedforward, num_feature_levels,
                  enc_n_points, dec_n_points, n_frames, n_future_frames,
-                 num_keypoints, dropout=0.1, impl="xla"):
+                 num_keypoints, dropout=0.1, impl="xla",
+                 sample_dtype="auto"):
         super().__init__()
         self.d_model, self.n_heads = d_model, n_heads
         self.num_feature_levels = num_feature_levels
@@ -278,11 +295,11 @@ class DeformableTransformer(nn.Module):
         for i in range(num_encoder_layers):
             setattr(self, f"encoder_layer{i}", EncoderLayer(
                 d_model, dim_feedforward, L, n_heads, enc_n_points, n_frames,
-                dropout, impl))
+                dropout, impl, sample_dtype))
         for i in range(num_decoder_layers):
             setattr(self, f"decoder_layer{i}", DecoderLayer(
                 d_model, dim_feedforward, L, n_heads, dec_n_points, n_frames,
-                dropout, impl))
+                dropout, impl, sample_dtype))
         self.num_encoder_layers = num_encoder_layers
         self.num_decoder_layers = num_decoder_layers
         self.reference_points = tag(nn.Linear(d_model, 2), "xavier")

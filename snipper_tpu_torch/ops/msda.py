@@ -196,6 +196,7 @@ def _msda_forward_op(value: torch.Tensor, shapes: List[int],
     if err != 0:
         raise RuntimeError(f"msda_forward launch failed: CUDA error {err}")
     ms_deform_attn.launches += 1
+    ms_deform_attn.launches_by_dtype[kind] += 1
     return out
 
 
@@ -278,6 +279,7 @@ def _msda_backward_op(value: torch.Tensor, shapes: List[int],
     if err != 0:
         raise RuntimeError(f"msda_backward launch failed: CUDA error {err}")
     ms_deform_attn.backward_launches += 1
+    ms_deform_attn.backward_launches_by_dtype[kind] += 1
     return d_value, d_loc, d_attn
 
 
@@ -314,7 +316,9 @@ def ms_deform_attn(value: torch.Tensor,
     """MSDA, by device: the plain version for CPU tensors, the two kernels
     through the registered operator for CUDA tensors.
     ``ms_deform_attn.launches`` counts the forward kernel's launches,
-    ``ms_deform_attn.backward_launches`` the backward kernel's."""
+    ``ms_deform_attn.backward_launches`` the backward kernel's; the
+    ``launches_by_dtype`` and ``backward_launches_by_dtype`` dicts split
+    them by the value's dtype (``"f32"``, ``"bf16"``)."""
     if value.device.type == "cpu":
         return ms_deform_attn_torch(value, spatial_shapes, loc, attn)
     return torch.ops.snipper_tpu_torch.msda_forward(
@@ -323,3 +327,5 @@ def ms_deform_attn(value: torch.Tensor,
 
 ms_deform_attn.launches = 0
 ms_deform_attn.backward_launches = 0
+ms_deform_attn.launches_by_dtype = {"f32": 0, "bf16": 0}
+ms_deform_attn.backward_launches_by_dtype = {"f32": 0, "bf16": 0}

@@ -1,7 +1,8 @@
 """The CUDA kernels ``msda_forward``, ``msda_backward``, ``win2d_sample``,
 ``win2d_contract``, ``hier_gather``, ``chain_gather``, ``chain_select`` and
 ``lsa_rows`` against their plain PyTorch versions, the two MSDA kernels
-through their registered operators, an exported artifact on the card
+through their registered operators, the f32-value kernels inside a bf16
+step (``deform_dtype="float32"``), an exported artifact on the card
 against the live model, and the device warps, ``cli.infer --device_preprocess``,
 ``cli.eval``, a train step from raw frames and the side-stream prefetch on
 the card against the CPU, on a CUDA card. Without one, every test here
@@ -370,6 +371,72 @@ def test_tiny_train_step_cuda_matches_cpu(cuda):
         torch.testing.assert_close(res["cuda"][1][k], v, rtol=1e-4,
                                    atol=1e-5, msg=k)
 
+
+
+def test_tiny_bf16_step_float32_sampling_cuda_matches_cpu(cuda):
+    """``deform_dtype="float32"`` in the tiny model's bf16 mixed-precision
+    forward and backward (dropout 0, batch 2): on the card every sampling
+    call launches the f32-value kernels, forward and backward, one of each
+    per layer and no bf16-value one; held against the same step on the CPU
+    (the plain MSDA): each prediction within ``BF16_BAR`` bf16 units of
+    its scale, the loss within 1e-2 of its size and the gradients within
+    ``GRAD_GAP`` of their norm. Both sides run bf16 matrix products, whose
+    sums cuBLAS and the CPU order differently."""
+    from snipper_tpu_torch.data.snippet import stack_batch
+    from snipper_tpu_torch.data.synthetic import SyntheticDataset
+    from snipper_tpu_torch.losses.criterion import SetCriterion
+    from snipper_tpu_torch.models.transformer import TemporalDeformAttn
+    from snipper_tpu_torch.train.state import param_label
+    from snipper_tpu_torch.train.step import batch_to_device, forward_loss
+
+    BF16_BAR, GRAD_GAP = 4.0, 5e-2
+    cfg = Config.tiny().replace(dropout=0.0, batch_size=2,
+                                deform_dtype="float32")
+    n_layers = cfg.enc_layers + cfg.dec_layers
+    ds = SyntheticDataset(cfg, n_samples=2, seed=0)
+    host = stack_batch([ds[0], ds[1]])
+    m_cpu = build_model(cfg, device="cpu", seed=1)
+    with torch.no_grad():
+        for name, p in m_cpu.named_parameters():
+            if name.endswith(("sampling_offsets.weight",
+                              "attention_weights.weight")):
+                p.normal_(0, 0.05, generator=torch.Generator().manual_seed(2))
+    m_gpu = build_model(cfg, device=cuda, seed=1)
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    assert all(m.sample_dtype == "float32" for m in m_gpu.modules()
+               if isinstance(m, TemporalDeformAttn))
+    res = {}
+    for dev, model in ((torch.device("cpu"), m_cpu), (cuda, m_gpu)):
+        params = []
+        for name, p in model.named_parameters():
+            p.requires_grad_(param_label(name) != "frozen")
+            if p.requires_grad:
+                params.append(p)
+        fwd = dict(ms_deform_attn.launches_by_dtype)
+        bwd = dict(ms_deform_attn.backward_launches_by_dtype)
+        total, _, out, _ = forward_loss(model.train(), SetCriterion(cfg),
+                                        batch_to_device(host, dev), True)
+        grads = torch.autograd.grad(total, params)
+        res[dev.type] = (total.item(),
+                         {k: out[k].detach().float().cpu()
+                          for k in ("pred_logits", "pred_kpts2d",
+                                    "pred_depth")},
+                         [g.cpu() for g in grads])
+        launched = ({k: v - fwd[k]
+                     for k, v in ms_deform_attn.launches_by_dtype.items()},
+                    {k: v - bwd[k] for k, v in
+                     ms_deform_attn.backward_launches_by_dtype.items()})
+        want = {"f32": n_layers if dev.type == "cuda" else 0, "bf16": 0}
+        assert launched == (want, want), launched
+    (loss_c, out_c, g_c), (loss_g, out_g, g_g) = res["cpu"], res["cuda"]
+    for k, want in out_c.items():
+        scale = max(1.0, want.abs().max().item()) * 2.0 ** -7
+        units = (out_g[k] - want).abs().max().item() / scale
+        assert units <= BF16_BAR, (k, units)
+    assert np.isfinite(loss_g) and abs(loss_g - loss_c) <= 1e-2 * abs(loss_c)
+    gap = (sum((a - b).pow(2).sum() for a, b in zip(g_g, g_c))
+           / sum(b.pow(2).sum() for b in g_c)).sqrt().item()
+    assert gap <= GRAD_GAP, gap
 
 
 # ------------------------------------------------------- the assignment

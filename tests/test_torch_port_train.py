@@ -46,16 +46,17 @@ B, NQ, T1, K, M = 2, 8, 3, 15, 4
 MAXD = 15.0
 
 
-def _problem(seed, n_layers=3, heatmap_shapes=((8, 12), (4, 6))):
+def _problem(seed, n_layers=3, heatmap_shapes=((8, 12), (4, 6)), nq=NQ,
+             m=M):
     """Random decoder outputs of ``n_layers`` layers (the last is final,
-    the others aux), encoder heatmaps, and padded targets with 3 and 1
-    valid persons."""
+    the others aux) over ``nq`` queries, encoder heatmaps, and targets
+    padded to ``m`` persons with 3 and 1 valid."""
     rng = np.random.default_rng(seed)
 
     def layer():
-        return (rng.standard_normal((B, NQ, T1, 2)).astype(np.float32),
-                rng.uniform(0, 1, (B, NQ, T1, K, 3)).astype(np.float32),
-                rng.uniform(0, 1, (B, NQ, T1, K, 1)).astype(np.float32))
+        return (rng.standard_normal((B, nq, T1, 2)).astype(np.float32),
+                rng.uniform(0, 1, (B, nq, T1, K, 3)).astype(np.float32),
+                rng.uniform(0, 1, (B, nq, T1, K, 1)).astype(np.float32))
 
     layers = [layer() for _ in range(n_layers)]
     outputs = {"pred_logits": layers[-1][0], "pred_kpts2d": layers[-1][1],
@@ -68,9 +69,9 @@ def _problem(seed, n_layers=3, heatmap_shapes=((8, 12), (4, 6))):
     outputs["heatmaps"] = [
         rng.standard_normal((B, t_obs, h, w, 4, K)).astype(np.float32) * 0.1
         for h, w in heatmap_shapes]
-    kpts = np.zeros((B, M, T1, K, 3), np.float32)
-    depth = np.zeros((B, M, T1, K, 2), np.float32)
-    valid = np.zeros((B, M), bool)
+    kpts = np.zeros((B, m, T1, K, 3), np.float32)
+    depth = np.zeros((B, m, T1, K, 2), np.float32)
+    valid = np.zeros((B, m), bool)
     for b, m in enumerate((3, 1)):
         kpts[b, :m] = rng.uniform(0, 1, (m, T1, K, 3))
         kpts[b, :m, ..., 2] = (kpts[b, :m, ..., 2] > 0.3).astype(np.float32)
@@ -157,17 +158,23 @@ def test_heatmap_targets_match_jax(h, w):
 
 
 # --------------------------------------------------------------- criterion
-@pytest.mark.parametrize("num_traj", [None, 2.5])
-def test_criterion_matches_jax(num_traj):
+@pytest.mark.parametrize("num_traj,nq,m,max_depth", [
+    pytest.param(None, NQ, M, MAXD, id="None"),
+    pytest.param(2.5, NQ, M, MAXD, id="2.5"),
+    # panoptic's square matching (num_queries == max_persons) at its depth
+    # range, and jta_forecast's depth range
+    pytest.param(None, M, M, 5.0, id="square-depth5"),
+    pytest.param(2.5, NQ, M, 60.0, id="depth60")])
+def test_criterion_matches_jax(num_traj, nq, m, max_depth):
     """Every loss of the final and the aux layers, the heatmap loss and
     the weighted total, to 1e-5 (relative for the heatmap sum)."""
-    outputs, targets = _problem(3)
-    cfg = Config(num_kpts=K, max_persons=M, num_queries=NQ)
-    total, losses, src = SetCriterion(cfg, dp_size=2)(
+    outputs, targets = _problem(3, nq=nq, m=m)
+    kw = dict(num_kpts=K, max_persons=m, num_queries=nq,
+              max_depth=max_depth)
+    total, losses, src = SetCriterion(Config(**kw), dp_size=2)(
         _to_torch(outputs), _to_torch(targets),
         num_traj=None if num_traj is None else np.float32(num_traj))
-    j_total, j_losses, j_src = JaxCriterion(
-        JaxConfig(num_kpts=K, max_persons=M, num_queries=NQ), dp_size=2)(
+    j_total, j_losses, j_src = JaxCriterion(JaxConfig(**kw), dp_size=2)(
         _to_jax(outputs), _to_jax(targets),
         num_traj=None if num_traj is None else jnp.float32(num_traj))
     assert set(losses) == set(j_losses)
@@ -467,15 +474,21 @@ def test_mixed_precision_tracks_f32_losses(tiny_pair):
     assert traj[True][-1] < traj[True][0]
 
 
-def test_mixed_precision_step_matches_jax(tiny_pair):
+@pytest.mark.parametrize("deform_dtype", ["auto", "float32"])
+def test_mixed_precision_step_matches_jax(tiny_pair, deform_dtype):
     """The port's mixed precision against JAX's ``make_train_step(
     mixed_precision=True)``: both cast every f32 weight and the images to
     bf16 inside the step. The losses of two steps within 5% relative, the
     bar of tests/test_train_step.py:114. A bf16 forward cannot be held to
     an f32 tolerance: JAX's own jitted and op-by-op bf16 forwards differ
     by up to 1.91 bf16 units of each prediction's scale at the tiny
-    fixture of tests/test_torch_port_bench.py."""
+    fixture of tests/test_torch_port_bench.py. ``deform_dtype`` is set in
+    both packages' configs: with ``"float32"`` the sampling runs in f32
+    inside the bf16 step."""
     jcfg, jm, params, cfg, host = tiny_pair
+    jcfg = jcfg.replace(deform_dtype=deform_dtype)
+    cfg = cfg.replace(deform_dtype=deform_dtype)
+    jm = jsnipper.build_model(jcfg)
     jbatch = {"images": jnp.asarray(host["images"]),
               "targets": _to_jax(host["targets"])}
     state, tx = jax_train_state(jcfg, _to_jax(params), steps_per_epoch=10)

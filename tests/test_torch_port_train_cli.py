@@ -189,6 +189,45 @@ def test_deform_impl_is_accepted_and_ignored(tmp_path):
     assert res["history"][0]["sampling_overflow"] == 0.0
 
 
+@pytest.mark.parametrize("deform_dtype", ["auto", "float32"])
+def test_deform_dtype_reaches_every_sampling(tmp_path, monkeypatch,
+                                             deform_dtype):
+    """``--deform_dtype`` is honoured, as in the JAX CLI: it reaches every
+    ``TemporalDeformAttn`` of the model the trainer builds, and in the
+    trainer's bf16 mixed-precision step every sampling call (one per
+    encoder and decoder layer and step) takes a value of that dtype."""
+    from snipper_tpu_torch.config import Config
+    from snipper_tpu_torch.models.transformer import TemporalDeformAttn
+    from snipper_tpu_torch.ops import deform_attn
+
+    built, seen = [], []
+    real_build, real_sample = train_cli.build_model, deform_attn.ms_deform_attn
+
+    def build(*a, **kw):
+        built.append(real_build(*a, **kw))
+        return built[-1]
+
+    def spy(value, *args):
+        seen.append(value.dtype)
+        return real_sample(value, *args)
+
+    monkeypatch.setattr(train_cli, "build_model", build)
+    monkeypatch.setattr(deform_attn, "ms_deform_attn", spy)
+    res = train_cli.main(ARGS + ["--epochs", "1", "--steps_per_epoch", "1",
+                                 "--eval_every", "5", "--deform_dtype",
+                                 deform_dtype, "--output_dir",
+                                 str(tmp_path)])
+    assert len(res["history"]) == 1
+    assert np.isfinite(res["history"][0]["loss_total"])
+    attns = [m for m in built[0].modules()
+             if isinstance(m, TemporalDeformAttn)]
+    cfg = Config.tiny()
+    assert len(attns) == cfg.enc_layers + cfg.dec_layers
+    assert all(m.sample_dtype == deform_dtype for m in attns)
+    want = torch.float32 if deform_dtype == "float32" else torch.bfloat16
+    assert seen == [want] * len(attns)
+
+
 def test_train_defaults_to_cuda_and_raises_without_it(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("checks the error raised where CUDA is absent")
