@@ -1,0 +1,7 @@
+"""Counted forward operations per batch times the untraced batches per second, over the f32 peak (TF32 off)."""
+
+from benchmark.metrics import _common
+
+
+def read(run):
+    return _common.mfu(run, "eval")
