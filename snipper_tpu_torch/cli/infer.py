@@ -30,6 +30,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from snipper_tpu_torch.cli.common import (add_config_args, build_config,
                                           load_state)
@@ -123,7 +124,13 @@ def serve_snippets(model, cfg, data_dir: str, seq_gap: int,
     host), each group's forward time including the copy of its inputs to
     the device (and, with ``device_preprocess``, the warp) and of its
     outputs to the host, and the time each group waited for its decoded
-    (and, on the host path, warped) frames."""
+    (and, on the host path, warped) frames.
+
+    Each group's phases are host spans (``record_function``, recorded
+    when a profiler runs): ``serve.wait`` (the interval of ``wait_ms``),
+    ``serve.upload``, the ``model`` call (the forward's own ``model.*``
+    spans) and ``serve.readback`` (together the interval of
+    ``forward_ms``), then ``serve.decode``."""
     frame_indices, all_files = snippet_index(data_dir, cfg.num_frames,
                                              seq_gap)
     world, rank = process_count(group), process_index(group)
@@ -143,44 +150,52 @@ def serve_snippets(model, cfg, data_dir: str, seq_gap: int,
     results, done_at, forward_ms, wait_ms = [], [], [], []
     t_start = time.perf_counter()
     for start in range(0, len(mine), gsz):
-        t_wait = time.perf_counter()
         group_idx = mine[start:start + gsz]
-        snippets = [next(sample_iter) for _ in group_idx]
-        if device_preprocess:
+        with record_function("serve.wait"):
+            t_wait = time.perf_counter()
+            snippets = [next(sample_iter) for _ in group_idx]
+            if not device_preprocess:
+                # host-warped frames: stacked on the host, uploaded once
+                host = np.stack([s["imgs"] for s in snippets])
             t0 = time.perf_counter()
-            wait_ms.append((t0 - t_wait) * 1e3)
-            # warped on the device, stacked there
-            imgs = torch.stack([to_device(s, cfg, device, True)
-                                for s in snippets])
-        else:
-            # host-warped frames: stacked on the host, uploaded once
-            host = np.stack([s["imgs"] for s in snippets])
-            t0 = time.perf_counter()
-            wait_ms.append((t0 - t_wait) * 1e3)
-            imgs = torch.from_numpy(host).to(device)
-        if imgs.shape[0] < gsz:  # pad the tail; padded outputs dropped
-            imgs = torch.cat([imgs, imgs[-1:].expand(
-                gsz - imgs.shape[0], *imgs.shape[1:])])
+        wait_ms.append((t0 - t_wait) * 1e3)
+        with record_function("serve.upload"):
+            if device_preprocess:
+                # warped on the device, stacked there
+                imgs = torch.stack([to_device(s, cfg, device, True)
+                                    for s in snippets])
+            else:
+                imgs = torch.from_numpy(host).to(device)
+            if imgs.shape[0] < gsz:  # pad the tail; padded outputs dropped
+                imgs = torch.cat([imgs, imgs[-1:].expand(
+                    gsz - imgs.shape[0], *imgs.shape[1:])])
         with torch.inference_mode():
+            # no span of the loop's own around ``model``: a caller's
+            # ``model`` may stop one profiler and start another, and a span
+            # open across that switch has torch write its end into the
+            # first profiler's freed events; the forward's ``model.*``
+            # stages time the call
             out = model(imgs)
-            logits = out["pred_logits"].cpu().numpy()
-            kpts = out["pred_kpts2d"].cpu().numpy()
-            depth = out["pred_depth"].cpu().numpy()
+            with record_function("serve.readback"):
+                logits = out["pred_logits"].cpu().numpy()
+                kpts = out["pred_kpts2d"].cpu().numpy()
+                depth = out["pred_depth"].cpu().numpy()
         t1 = time.perf_counter()
         forward_ms.append((t1 - t0) * 1e3)
         done_at.append(t1)
-        for b, (i, s) in enumerate(zip(group_idx, snippets)):
-            prob, score, k2, d = decode_predictions(
-                logits[b], kpts[b], depth[b], cfg.max_depth, (w, h))
-            results.append((i, {
-                "human_score": prob,
-                "pred_kpt_scores": score,
-                "pred_kpts": k2,
-                "pred_depth": d,
-                "inv_trans": s["inv_trans"],
-                "img_size": s["img_size"],
-                "filenames": s["filenames"],
-            }))
+        with record_function("serve.decode"):
+            for b, (i, s) in enumerate(zip(group_idx, snippets)):
+                prob, score, k2, d = decode_predictions(
+                    logits[b], kpts[b], depth[b], cfg.max_depth, (w, h))
+                results.append((i, {
+                    "human_score": prob,
+                    "pred_kpt_scores": score,
+                    "pred_kpts": k2,
+                    "pred_depth": d,
+                    "inv_trans": s["inv_trans"],
+                    "img_size": s["img_size"],
+                    "filenames": s["filenames"],
+                }))
     seconds = time.perf_counter() - t_start
     merged = sorted((r for chunk in all_gather_objects(results, group)
                      for r in chunk), key=lambda r: r[0])

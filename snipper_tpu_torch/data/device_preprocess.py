@@ -26,6 +26,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 
 def _axis_taps(scale: float, offset: float, out_size: int, src_size: int,
@@ -105,12 +106,14 @@ def preprocess_snippet_device(raw_imgs, trans: np.ndarray,
     tensor, ideally in pinned memory) + the forward centre-crop affine ->
     ``[T, out_h, out_w, 3]`` float32 in [0, 1] on ``device`` (default: the
     frames' own device). The frames are copied as uint8, without blocking
-    the host."""
+    the host. The warp runs in the serving loop's host span
+    ``serve.warp``."""
     x = torch.as_tensor(raw_imgs)
     if device is not None:
         x = x.to(device, non_blocking=True)
-    return warp_affine_device(x, invert_axis_aligned(trans),
-                              tuple(input_shape))
+    with record_function("serve.warp"):
+        return warp_affine_device(x, invert_axis_aligned(trans),
+                                  tuple(input_shape))
 
 
 def warp_train_batch_device(raw: torch.Tensor, inv: torch.Tensor,

@@ -20,6 +20,7 @@ import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+from torch.profiler import record_function
 
 from snipper_tpu_torch.data.transforms import (gen_trans_from_patch,
                                                generate_patch_image)
@@ -178,8 +179,15 @@ def associate_snippets(results: List[Dict], frame_indices: List[int],
     Returns ``(all_frames_results, max_pid)`` where
     ``all_frames_results[frame_idx] = (pids [m], frame_data [m, K, 4])``
     with columns (x, y, depth, score) and the root replaced by the hip
-    midpoint.
+    midpoint. Runs in the host span ``serve.associate``.
     """
+    with record_function("serve.associate"):
+        return _associate(results, frame_indices, all_filenames, num_frames,
+                          gap, max_depth)
+
+
+def _associate(results, frame_indices, all_filenames, num_frames, gap,
+               max_depth):
     all_frames: Dict[int, tuple] = {}
     max_pid = 0
 

@@ -5,7 +5,10 @@ Counterpart of ``snipper_tpu/models/snipper.py`` with the same public
 layout: images ``[B, T, H, W, 3]`` in [0, 1], an optional pad mask
 ``[B, T, H, W]`` (True = pad), and the same output-dict keys. Module and
 parameter names follow the flax tree, so ``convert.state_dict_from_jax``
-is a plain walk with transposes.
+is a plain walk with transposes. The forward's four stages run in host
+spans (``record_function``): ``model.backbone`` (with the input
+projections and the position encodings), ``model.encoder`` and
+``model.decoder`` (``models/transformer.py``), ``model.heads``.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Dict, List, Mapping, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from snipper_tpu_torch.config import Config
 from snipper_tpu_torch.models.init import fill_, init_weights
@@ -84,70 +88,72 @@ class Snipper(nn.Module):
             raise ValueError(f"got {T} frames, config has {cfg.num_frames}")
         C = cfg.hidden_dim
 
-        # ---- backbone on folded frames (NHWC memory, NCHW logical) --------
-        x = images.reshape(B * T, H, W, 3).permute(0, 3, 1, 2)
-        taps = self.backbone(x)
+        with record_function("model.backbone"):
+            # ---- backbone on folded frames (NHWC memory, NCHW logical) ----
+            x = images.reshape(B * T, H, W, 3).permute(0, 3, 1, 2)
+            taps = self.backbone(x)
 
-        # ---- input projections + extra levels -----------------------------
-        srcs: List[torch.Tensor] = []
-        for lvl in range(min(cfg.num_feature_levels, len(taps))):
-            srcs.append(getattr(self, f"input_proj{lvl}")(taps[lvl]))
-        extra_src = taps[-1]
-        for lvl in range(len(taps), cfg.num_feature_levels):
-            extra_src = getattr(self, f"input_proj{lvl}")(extra_src)
-            srcs.append(extra_src)
-        srcs = [s.permute(0, 2, 3, 1) for s in srcs]       # [B*T, h, w, C]
+            # ---- input projections + extra levels -------------------------
+            srcs: List[torch.Tensor] = []
+            for lvl in range(min(cfg.num_feature_levels, len(taps))):
+                srcs.append(getattr(self, f"input_proj{lvl}")(taps[lvl]))
+            extra_src = taps[-1]
+            for lvl in range(len(taps), cfg.num_feature_levels):
+                extra_src = getattr(self, f"input_proj{lvl}")(extra_src)
+                srcs.append(extra_src)
+            srcs = [s.permute(0, 2, 3, 1) for s in srcs]   # [B*T, h, w, C]
 
-        # ---- masks + position encodings per level -------------------------
-        masks, pos_embeds = [], []
-        for src in srcs:
-            _, h, w, _ = src.shape
-            if mask is not None:
-                # nearest downsample with torch's floor convention
-                # src = floor(dst * in / out) (snipper.py:77-84)
-                iy = torch.arange(h, device=mask.device) * H // h
-                ix = torch.arange(w, device=mask.device) * W // w
-                m = mask[:, :, iy][:, :, :, ix]
-            else:
-                m = torch.zeros(B, T, h, w, dtype=torch.bool,
-                                device=images.device)
-            masks.append(m)
-            pe = position_encoding_3d(m, C // 3)
-            if pe.shape[-1] != C:  # hidden_dim not divisible by 3: zero-pad
-                pe = F.pad(pe, (0, C - pe.shape[-1]))
-            pos_embeds.append(pe.to(src.dtype))
-        srcs = [s.reshape(B, T, *s.shape[1:]) for s in srcs]
+            # ---- masks + position encodings per level ---------------------
+            masks, pos_embeds = [], []
+            for src in srcs:
+                _, h, w, _ = src.shape
+                if mask is not None:
+                    # nearest downsample with torch's floor convention
+                    # src = floor(dst * in / out) (snipper.py:77-84)
+                    iy = torch.arange(h, device=mask.device) * H // h
+                    ix = torch.arange(w, device=mask.device) * W // w
+                    m = mask[:, :, iy][:, :, :, ix]
+                else:
+                    m = torch.zeros(B, T, h, w, dtype=torch.bool,
+                                    device=images.device)
+                masks.append(m)
+                pe = position_encoding_3d(m, C // 3)
+                if pe.shape[-1] != C:  # hidden_dim not divisible by 3: pad
+                    pe = F.pad(pe, (0, C - pe.shape[-1]))
+                pos_embeds.append(pe.to(src.dtype))
+            srcs = [s.reshape(B, T, *s.shape[1:]) for s in srcs]
 
         # ---- transformer ---------------------------------------------------
         tr = self.transformer(srcs, masks if mask is not None else None,
                               pos_embeds, self.query_embed,
                               return_attn=return_attn)
-        hs = tr["hs"]                    # [nl, B, T1, q, C]
-        roots_raw = tr["roots_raw"]      # [nl, B, T1, q, 4]
-        nl = hs.shape[0]
 
-        # ---- heads ---------------------------------------------------------
-        logits = self.class_embed(hs).transpose(2, 3)     # [nl, B, q, T1, 2]
-        roots = torch.sigmoid(roots_raw).transpose(2, 3)[..., None, :]
-        joints = torch.stack(
-            [getattr(self, f"joint_embed{j}")(hs)
-             for j in range(cfg.num_kpts - 1)], dim=-2)
-        joints = joints.transpose(2, 3)              # [nl, B, q, T1, K-1, 4]
-        kpts = torch.cat([roots, joints], dim=-2)    # [nl, B, q, T1, K, 4]
+        with record_function("model.heads"):
+            # ---- heads -----------------------------------------------------
+            hs = tr["hs"]                    # [nl, B, T1, q, C]
+            roots_raw = tr["roots_raw"]      # [nl, B, T1, q, 4]
+            nl = hs.shape[0]
+            logits = self.class_embed(hs).transpose(2, 3)  # [nl, B, q, T1, 2]
+            roots = torch.sigmoid(roots_raw).transpose(2, 3)[..., None, :]
+            joints = torch.stack(
+                [getattr(self, f"joint_embed{j}")(hs)
+                 for j in range(cfg.num_kpts - 1)], dim=-2)
+            joints = joints.transpose(2, 3)          # [nl, B, q, T1, K-1, 4]
+            kpts = torch.cat([roots, joints], dim=-2)  # [nl, B, q, T1, K, 4]
 
-        out = {
-            "pred_logits": logits[-1],       # [B, q, T1, 2]
-            "pred_kpts2d": kpts[-1, ..., 0:3],
-            "pred_depth": kpts[-1, ..., 3:4],
-            "heatmaps": tr["heatmaps"],      # [(B, T, h, w, nhead, K)]
-        }
-        if cfg.aux_loss and nl > 1:
-            out["aux_logits"] = logits[:-1]
-            out["aux_kpts2d"] = kpts[:-1, ..., 0:3]
-            out["aux_depth"] = kpts[:-1, ..., 3:4]
-        out["init_reference"] = tr["init_reference"]
-        out["references"] = tr["references"]
-        out["sampling_overflow"] = tr["sampling_overflow"]
+            out = {
+                "pred_logits": logits[-1],       # [B, q, T1, 2]
+                "pred_kpts2d": kpts[-1, ..., 0:3],
+                "pred_depth": kpts[-1, ..., 3:4],
+                "heatmaps": tr["heatmaps"],      # [(B, T, h, w, nhead, K)]
+            }
+            if cfg.aux_loss and nl > 1:
+                out["aux_logits"] = logits[:-1]
+                out["aux_kpts2d"] = kpts[:-1, ..., 0:3]
+                out["aux_depth"] = kpts[:-1, ..., 3:4]
+            out["init_reference"] = tr["init_reference"]
+            out["references"] = tr["references"]
+            out["sampling_overflow"] = tr["sampling_overflow"]
         if return_attn:
             out["attn_data"] = tr["attn_data"]
         return out

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from snipper_tpu_torch.models.init import fill_, tag
 from snipper_tpu_torch.ops.deform_attn import (device_constant,
@@ -317,85 +318,87 @@ class DeformableTransformer(nn.Module):
                 return_attn: bool = False):
         # srcs, pos_embeds: per level [B, T, h, w, C]; masks per level
         # [B, T, h, w] True = pad; query_embed [num_queries*(T+Tf), 2C]
-        B, T, _, _, C = srcs[0].shape
-        L = self.num_feature_levels
-        spatial_shapes = tuple((s.shape[2], s.shape[3]) for s in srcs)
-        t_total = self.n_frames + self.n_future_frames
+        with record_function("model.encoder"):
+            B, T, _, _, C = srcs[0].shape
+            L = self.num_feature_levels
+            spatial_shapes = tuple((s.shape[2], s.shape[3]) for s in srcs)
+            t_total = self.n_frames + self.n_future_frames
 
-        src_flat = torch.cat([s.reshape(B, T, -1, C) for s in srcs], 2)
-        pos_flat = torch.cat(
-            [(p + self.level_embed[lvl]).reshape(B, T, -1, C)
-             for lvl, p in enumerate(pos_embeds)], 2)
-        if masks is not None:
-            mask_flat = torch.cat([m.reshape(B, T, -1) for m in masks], 2)
-            # valid ratios from frame 0 (transformer.py:344-347)
-            valid_ratios = torch.stack(
-                [torch.stack([(~m[:, 0, 0, :]).sum(1) / m.shape[3],
-                              (~m[:, 0, :, 0]).sum(1) / m.shape[2]], -1)
-                 for m in masks], 1).float()           # [B, L, 2]
-        else:
-            mask_flat = None
-            valid_ratios = torch.ones(B, L, 2, device=src_flat.device)
+            src_flat = torch.cat([s.reshape(B, T, -1, C) for s in srcs], 2)
+            pos_flat = torch.cat(
+                [(p + self.level_embed[lvl]).reshape(B, T, -1, C)
+                 for lvl, p in enumerate(pos_embeds)], 2)
+            if masks is not None:
+                mask_flat = torch.cat([m.reshape(B, T, -1) for m in masks], 2)
+                # valid ratios from frame 0 (transformer.py:344-347)
+                valid_ratios = torch.stack(
+                    [torch.stack([(~m[:, 0, 0, :]).sum(1) / m.shape[3],
+                                  (~m[:, 0, :, 0]).sum(1) / m.shape[2]], -1)
+                     for m in masks], 1).float()           # [B, L, 2]
+            else:
+                mask_flat = None
+                valid_ratios = torch.ones(B, L, 2, device=src_flat.device)
 
-        # ---- encoder -------------------------------------------------------
-        enc_ref = encoder_reference_points(spatial_shapes, valid_ratios)
-        enc_ref = enc_ref[:, None].expand(B, T, *enc_ref.shape[1:])
-        memory = src_flat
-        sampling_overflow = 0
-        for i in range(self.num_encoder_layers):
-            memory, ov = getattr(self, f"encoder_layer{i}")(
-                memory, pos_flat, enc_ref, spatial_shapes, mask_flat)
-            sampling_overflow += ov
+            # ---- encoder ---------------------------------------------------
+            enc_ref = encoder_reference_points(spatial_shapes, valid_ratios)
+            enc_ref = enc_ref[:, None].expand(B, T, *enc_ref.shape[1:])
+            memory = src_flat
+            sampling_overflow = 0
+            for i in range(self.num_encoder_layers):
+                memory, ov = getattr(self, f"encoder_layer{i}")(
+                    memory, pos_flat, enc_ref, spatial_shapes, mask_flat)
+                sampling_overflow += ov
 
-        # ---- heatmaps: first num_keypoints channels of each head ----------
-        heatmaps = []
-        start = 0
-        hd = self.d_model // self.n_heads
-        for (h, w) in spatial_shapes:
-            m = memory[:, :, start:start + h * w]
-            start += h * w
-            m = m.reshape(B, T, h, w, self.n_heads, hd)
-            heatmaps.append(m[..., : self.num_keypoints])
+            # ---- heatmaps: first num_keypoints channels of each head ------
+            heatmaps = []
+            start = 0
+            hd = self.d_model // self.n_heads
+            for (h, w) in spatial_shapes:
+                m = memory[:, :, start:start + h * w]
+                start += h * w
+                m = m.reshape(B, T, h, w, self.n_heads, hd)
+                heatmaps.append(m[..., : self.num_keypoints])
 
-        # ---- decoder -------------------------------------------------------
-        # first half of query_embed is query_pos, second query_obj, both
-        # time-major (transformer.py:390-396)
-        n_query = query_embed.shape[0] // t_total
-        query_pos, query_obj = torch.split(query_embed, C, dim=-1)
-        query_pos = query_pos.reshape(t_total, n_query, C)[None].expand(
-            B, -1, -1, -1)
-        query_pos = query_pos + self.temporal_embed[None, :, None, :]
-        query_obj = query_obj.reshape(t_total, n_query, C)[None].expand(
-            B, -1, -1, -1)
+        with record_function("model.decoder"):
+            # ---- decoder ---------------------------------------------------
+            # first half of query_embed is query_pos, second query_obj, both
+            # time-major (transformer.py:390-396)
+            n_query = query_embed.shape[0] // t_total
+            query_pos, query_obj = torch.split(query_embed, C, dim=-1)
+            query_pos = query_pos.reshape(t_total, n_query, C)[None].expand(
+                B, -1, -1, -1)
+            query_pos = query_pos + self.temporal_embed[None, :, None, :]
+            query_obj = query_obj.reshape(t_total, n_query, C)[None].expand(
+                B, -1, -1, -1)
 
-        reference_points = torch.sigmoid(self.reference_points(query_pos))
-        init_reference = reference_points
+            reference_points = torch.sigmoid(self.reference_points(query_pos))
+            init_reference = reference_points
 
-        hs, refs_in, roots_raw, attn_all = [], [], [], []
-        output = query_obj
-        for i in range(self.num_decoder_layers):
-            ref_input = (reference_points[:, :, :, None, :]
-                         * valid_ratios[:, None, None, :, :])
-            output, attn_data = getattr(self, f"decoder_layer{i}")(
-                output, query_pos, ref_input, memory, spatial_shapes,
-                mask_flat, return_attn=return_attn)
-            root4 = self.root_embed(output)                 # [B, T1, q, 4]
-            xy_logit = root4[..., 0:2] + inverse_sigmoid(reference_points)
-            hs.append(output)
-            refs_in.append(reference_points)
-            roots_raw.append(torch.cat([xy_logit, root4[..., 2:4]], -1))
-            attn_all.append(attn_data)
-            # iterative refinement with a detached sigmoid (:434)
-            reference_points = torch.sigmoid(xy_logit).detach()
+            hs, refs_in, roots_raw, attn_all = [], [], [], []
+            output = query_obj
+            for i in range(self.num_decoder_layers):
+                ref_input = (reference_points[:, :, :, None, :]
+                             * valid_ratios[:, None, None, :, :])
+                output, attn_data = getattr(self, f"decoder_layer{i}")(
+                    output, query_pos, ref_input, memory, spatial_shapes,
+                    mask_flat, return_attn=return_attn)
+                root4 = self.root_embed(output)                 # [B, T1, q, 4]
+                xy_logit = root4[..., 0:2] + inverse_sigmoid(reference_points)
+                hs.append(output)
+                refs_in.append(reference_points)
+                roots_raw.append(torch.cat([xy_logit, root4[..., 2:4]], -1))
+                attn_all.append(attn_data)
+                # iterative refinement with a detached sigmoid (:434)
+                reference_points = torch.sigmoid(xy_logit).detach()
 
-        out = {
-            "hs": torch.stack(hs),                       # [nl, B, T1, q, C]
-            "roots_raw": torch.stack(roots_raw),         # [nl, B, T1, q, 4]
-            "heatmaps": heatmaps,
-            "init_reference": init_reference,
-            "references": torch.stack(refs_in),
-            "sampling_overflow": sampling_overflow,
-        }
+            out = {
+                "hs": torch.stack(hs),                   # [nl, B, T1, q, C]
+                "roots_raw": torch.stack(roots_raw),     # [nl, B, T1, q, 4]
+                "heatmaps": heatmaps,
+                "init_reference": init_reference,
+                "references": torch.stack(refs_in),
+                "sampling_overflow": sampling_overflow,
+            }
         if return_attn:
             out["attn_data"] = attn_all
         return out

@@ -25,6 +25,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from snipper_tpu_torch.config import Config
 from snipper_tpu_torch.data.loader import device_prefetch
@@ -36,6 +37,7 @@ from snipper_tpu_torch.parallel.multihost import (all_gather_objects,
 from snipper_tpu_torch.train.step import batch_to_device, eval_step, \
     train_step
 from snipper_tpu_torch.utils.logger import MetricLogger
+from snipper_tpu_torch.utils.profiling import spanned
 
 POSE3D_KEYS = ("mpjpe_root", "mpjpe_joint", "pel_mpjpe_joint", "3dpck")
 PCKH_KEYS = ("pckh_root", "pckh_joint")
@@ -99,7 +101,10 @@ def train_one_epoch(state, criterion, loader, epoch: int,
     ``profile_dir``: trace ``profile_steps`` steps with ``torch.profiler``
     (from step 2, after the first step and one warm step; JAX
     ``train/engine.py:74-148``) into that directory and print the top
-    device kernels by self time per step."""
+    device kernels by self time per step and the host spans: each step's
+    wait for its batch (``train.wait``), ``train_step`` (``train.step``,
+    with ``train.backward`` and ``train.update`` inside) and the read of
+    its scalars (``train.readback``)."""
     logger = MetricLogger()
     history: List[Dict[str, float]] = []
     profiler = contextlib.ExitStack()
@@ -136,9 +141,9 @@ def train_one_epoch(state, criterion, loader, epoch: int,
     iterable = device_prefetch(
         iterable, lambda b: batch_to_device(b, device), stream=stream)
     t_data = time.perf_counter()
-    for i, batch in enumerate(logger.log_every(iterable, print_freq,
-                                               f"Epoch: [{epoch}]",
-                                               quiet=not is_main_process())):
+    for i, batch in enumerate(spanned(
+            logger.log_every(iterable, print_freq, f"Epoch: [{epoch}]",
+                             quiet=not is_main_process()), "train.wait")):
         if max_steps is not None and i >= max_steps:
             break
         if stop_flag is not None and stop_flag():
@@ -150,9 +155,11 @@ def train_one_epoch(state, criterion, loader, epoch: int,
             profiler.enter_context(trace(profile_dir))
             profiling = True
         t0 = time.perf_counter()
-        metrics = _read_scalars(train_step(
-            state, criterion, batch, generator,
-            mixed_precision=mixed_precision))
+        with record_function("train.step"):
+            step_metrics = train_step(state, criterion, batch, generator,
+                                      mixed_precision=mixed_precision)
+        with record_function("train.readback"):
+            metrics = _read_scalars(step_metrics)
         t_data, data_s = time.perf_counter(), t0 - t_data
         history.append(dict(metrics, seconds=t_data - t0,
                             data_seconds=data_s))
@@ -201,7 +208,12 @@ def evaluate(model, criterion, loader, cfg: Config, device: torch.device,
     ``collect_results``: the PostProcess results of every sample are
     returned under ``_results``. ``save_vis_dir``: the first
     ``save_vis_batches`` batches get GT-vs-prediction keypoint renders
-    written there (reference ``engine.py:132-135`` under ``save_vis``)."""
+    written there (reference ``engine.py:132-135`` under ``save_vis``).
+
+    Each batch's phases run in host spans: ``eval.upload``, ``eval.step``
+    (the forward's ``model.*`` and the matching's ``match_layers``
+    inside), ``eval.readback``, ``eval.postprocess``, then ``eval.metrics``
+    (the renders when asked, PCKh and the 3D metrics)."""
     logger = MetricLogger()
     T, Tf = cfg.num_frames, cfg.num_future_frames
     pose3d = {k: [] for k in POSE3D_KEYS}
@@ -212,39 +224,44 @@ def evaluate(model, criterion, loader, cfg: Config, device: torch.device,
     for batch_idx, batch in enumerate(logger.log_every(loader, print_freq,
                                                        "Eval:", quiet)):
         t0 = time.perf_counter()
-        outputs, losses, src_idx = eval_step(
-            model, criterion, batch_to_device(batch, device))
-        logger.update(**_read_scalars(losses))
-        outputs_np = {k: outputs[k].float().cpu().numpy()
-                      for k in ("pred_logits", "pred_kpts2d", "pred_depth")}
-        results = postprocess(outputs_np, batch["meta"],
-                              src_idx.cpu().numpy())
+        with record_function("eval.upload"):
+            on_device = batch_to_device(batch, device)
+        with record_function("eval.step"):
+            outputs, losses, src_idx = eval_step(model, criterion, on_device)
+        with record_function("eval.readback"):
+            logger.update(**_read_scalars(losses))
+            outputs_np = {k: outputs[k].float().cpu().numpy() for k in
+                          ("pred_logits", "pred_kpts2d", "pred_depth")}
+            src_np = src_idx.cpu().numpy()
+        with record_function("eval.postprocess"):
+            results = postprocess(outputs_np, batch["meta"], src_np)
         batch_seconds.append(time.perf_counter() - t0)
         if collect_results:
             all_results.extend(results)
-        if save_vis_dir is not None and batch_idx < save_vis_batches:
-            from snipper_tpu_torch.infer.visualize import \
-                save_eval_keypoint_renders
+        with record_function("eval.metrics"):
+            if save_vis_dir is not None and batch_idx < save_vis_batches:
+                from snipper_tpu_torch.infer.visualize import \
+                    save_eval_keypoint_renders
 
-            save_eval_keypoint_renders(
-                results, np.asarray(batch["images"]), save_vis_dir,
-                batch_idx=batch_idx)
-        # 2D PCKh on posetrack-style samples (reference
-        # eval_utils.py:96-175; observed frames only)
-        for key in PCKH_KEYS:
-            v = eval_kpts2d_pckh(key, results, 0, T)
-            if v is not None and v.size:
-                pckh[key].append(v)
-        for key in POSE3D_KEYS:
-            mkey = "pel_mpjpe_joint" if key == "3dpck" else key
-            cur = eval_pose3d(mkey, results, 0, T)
-            pose3d[key].append((cur < 0.15).astype(np.float32)
-                               if key == "3dpck" else cur)
-            if Tf > 0:
-                fut = eval_pose3d(mkey, results, T, T + Tf)
-                pose3d_future[key].append(
-                    (fut < 0.15).astype(np.float32) if key == "3dpck"
-                    else fut)
+                save_eval_keypoint_renders(
+                    results, np.asarray(batch["images"]), save_vis_dir,
+                    batch_idx=batch_idx)
+            # 2D PCKh on posetrack-style samples (reference
+            # eval_utils.py:96-175; observed frames only)
+            for key in PCKH_KEYS:
+                v = eval_kpts2d_pckh(key, results, 0, T)
+                if v is not None and v.size:
+                    pckh[key].append(v)
+            for key in POSE3D_KEYS:
+                mkey = "pel_mpjpe_joint" if key == "3dpck" else key
+                cur = eval_pose3d(mkey, results, 0, T)
+                pose3d[key].append((cur < 0.15).astype(np.float32)
+                                   if key == "3dpck" else cur)
+                if Tf > 0:
+                    fut = eval_pose3d(mkey, results, T, T + Tf)
+                    pose3d_future[key].append(
+                        (fut < 0.15).astype(np.float32) if key == "3dpck"
+                        else fut)
 
     group = None if mesh is None else mesh.data_group
     if group is not None:

@@ -35,6 +35,7 @@ from typing import Dict
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from snipper_tpu_torch.data.device_preprocess import warp_train_batch_device
 from snipper_tpu_torch.losses.criterion import SetCriterion
@@ -76,7 +77,8 @@ def forward_loss(model, criterion: SetCriterion, batch: Dict,
     step.py:91-95``); the casts are in the autograd graph, so the f32
     masters receive f32 gradients. A batch of raw frames is warped first,
     in f32, so only the model sees bf16. The criterion casts what it reads
-    to f32 (``losses/criterion.py``), as JAX's does."""
+    to f32 (``losses/criterion.py``), as JAX's does; it runs in the host
+    span ``criterion`` (the matching's ``match_layers`` inside)."""
     if "raw_images" in batch:  # JAX train/step.py:77-89
         images = warp_train_batch_device(
             batch["raw_images"], batch["warp_inv"], batch["color_scale"],
@@ -90,8 +92,9 @@ def forward_loss(model, criterion: SetCriterion, batch: Dict,
             model, weights, (images.to(torch.bfloat16), batch.get("mask")))
     else:
         out = model(images, batch.get("mask"))
-    total, losses, src_idx = criterion(out, batch["targets"],
-                                       num_traj=batch.get("num_traj"))
+    with record_function("criterion"):
+        total, losses, src_idx = criterion(out, batch["targets"],
+                                           num_traj=batch.get("num_traj"))
     return total, losses, out, src_idx
 
 
@@ -149,7 +152,9 @@ def train_step(state: TrainState, criterion: SetCriterion, batch: Dict,
     gradients, every loss term, ``sampling_overflow``), averaged over the
     data group; read them with one host copy. With accumulation over a
     data group, a microbatch's ``grad_norm`` is the mean of the ranks'
-    own norms (the average is taken at the window's end)."""
+    own norms (the average is taken at the window's end). The backward
+    and the update run in the host spans ``train.backward`` and
+    ``train.update``."""
     model, cfg, mesh = state.model, state.cfg, state.mesh
     model.train()
     seed = dropout_seed(generator, mesh)
@@ -158,7 +163,8 @@ def train_step(state: TrainState, criterion: SetCriterion, batch: Dict,
         torch.manual_seed(seed)
         total, losses, out, _ = forward_loss(model, criterion, batch,
                                              mixed_precision)
-    grads = torch.autograd.grad(total, state.params)
+    with record_function("train.backward"):
+        grads = torch.autograd.grad(total, state.params)
     k = max(cfg.grad_accum_steps, 1)
     if k == 1:
         grads = average_gradients(grads, mesh)
@@ -181,7 +187,8 @@ def train_step(state: TrainState, criterion: SetCriterion, batch: Dict,
         grads = average_gradients(state.accum, mesh)
         state.accum = None
         norm = global_norm(grads, state.params, mesh)
-    apply_update(state, grads, norm)
+    with record_function("train.update"):
+        apply_update(state, grads, norm)
     return metrics
 
 

@@ -46,6 +46,24 @@ def trace(log_dir: str):
         os.path.join(log_dir, f"trace_{time.time_ns()}.pt.trace.json"))
 
 
+def spanned(iterable, name: str):
+    """The items of ``iterable``, each one's fetch in the host span
+    ``name`` (``record_function``): the wait of a loop for its next
+    item."""
+    from torch.profiler import record_function
+
+    it = iter(iterable)
+    while True:
+        with record_function(name):
+            item = next(it, _END)
+        if item is _END:
+            return
+        yield item
+
+
+_END = object()
+
+
 def _newest_trace(log_dir: str) -> Optional[str]:
     paths = glob.glob(os.path.join(log_dir, "*.pt.trace.json")) + \
         glob.glob(os.path.join(log_dir, "*.pt.trace.json.gz"))
@@ -97,7 +115,8 @@ def host_spans(log_dir: str, n_iters: int = 1) -> Dict[str, float]:
     """Host spans named with ``torch.profiler.record_function`` (``cat``
     ``user_annotation``; the profiler's own ``ProfilerStep#`` left out) in
     the newest trace in ``log_dir``, summed by name: ``{name:
-    ms_per_iter}``. ``match_layers`` is the matching's host time."""
+    ms_per_iter}``: the training loop's ``train.*``, the matching's
+    ``match_layers``, the forward's ``model.*``."""
     path = _newest_trace(log_dir)
     if path is None:
         return {}
@@ -107,28 +126,3 @@ def host_spans(log_dir: str, n_iters: int = 1) -> Dict[str, float]:
                 and not str(e["name"]).startswith("ProfilerStep#"):
             agg[str(e["name"])] += float(e.get("dur", 0)) / 1e3 / n_iters
     return dict(agg)
-
-
-class StepTimer:
-    """Wall-clock per-step timer with warmup skip (MetricLogger-compatible
-    numbers for quick throughput reports)."""
-
-    def __init__(self, warmup: int = 1):
-        self.warmup = warmup
-        self.times = []
-        self._t: Optional[float] = None
-        self._n = 0
-
-    def __enter__(self):
-        self._t = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        dt = time.perf_counter() - self._t
-        self._n += 1
-        if self._n > self.warmup:
-            self.times.append(dt)
-
-    @property
-    def mean(self) -> float:
-        return sum(self.times) / max(len(self.times), 1)

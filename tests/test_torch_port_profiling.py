@@ -18,12 +18,10 @@ import gzip
 import json
 import os
 
-import pytest
 import torch
 
 from snipper_tpu.utils.profiling import summarize_trace as jax_summarize
-from snipper_tpu_torch.utils.profiling import StepTimer, summarize_trace, \
-    trace
+from snipper_tpu_torch.utils.profiling import summarize_trace, trace
 
 
 def _write(tmp_path, events, name="trace_1.pt.trace.json"):
@@ -166,10 +164,8 @@ def test_real_cpu_trace_summarizes(tmp_path):
     cfg = Config.tiny()
     model = build_model(cfg, device="cpu")
     x = torch.rand(1, cfg.num_frames, cfg.input_height, cfg.input_width, 3)
-    timer = StepTimer(warmup=0)
-    with trace(str(tmp_path)), timer, torch.inference_mode():
+    with trace(str(tmp_path)), torch.inference_mode():
         model(x)
-    assert len(timer.times) == 1 and timer.mean > 0
     top = summarize_trace(str(tmp_path), top_k=5)
     assert len(top) == 5 and all(v > 0 for v in top.values())
     assert all(k.startswith("aten::") for k in top)
@@ -230,15 +226,6 @@ def test_train_cli_profile_window_starts_at_step_2(tmp_path, capsys,
         "--profile_steps", "2"])
     assert started == [2] and len(steps) == 4
     assert "clamped" not in capsys.readouterr().out
-
-
-@pytest.mark.parametrize("warmup,want", [(0, 3), (1, 2)])
-def test_step_timer_skips_warmup(warmup, want):
-    t = StepTimer(warmup=warmup)
-    for _ in range(3):
-        with t:
-            pass
-    assert len(t.times) == want
 
 
 def test_host_spans_sum_annotations(tmp_path):
