@@ -2070,12 +2070,16 @@ def phase_native_ops(card, out_hw=(600, 800)):
     1920x1080 frame timed native against numpy, four frames on four
     threads against one (host clock, median); ``lsa_pairs`` against
     scipy's optimal cost on costs of 60 queries and 1-20 targets, both
-    orientations, and one 60x20 assignment timed against scipy's."""
+    orientations, and one 60x20 assignment timed against scipy's; serving's
+    ``warp_patch_exact`` equal bit for bit to the numpy
+    ``generate_patch_image`` on every case's frame and affine, and one
+    1280x720 frame of it timed against numpy."""
     import numpy as np
     from scipy.optimize import linear_sum_assignment
 
     from snipper_tpu_torch.data import native_ops
-    from snipper_tpu_torch.data.transforms import gen_trans_from_patch
+    from snipper_tpu_torch.data.transforms import (gen_trans_from_patch,
+                                                   generate_patch_image)
 
     check(native_ops.have_native(), "the host ops are not native")
     info = native_ops.build_info
@@ -2133,6 +2137,21 @@ def phase_native_ops(card, out_hw=(600, 800)):
         f"{one_thread_ms:.2f} ms, on four threads {four_threads_ms:.2f} ms "
         f"({one_thread_ms / four_threads_ms:.2f}x)")
 
+    exact_differ = {
+        k: int((native_ops.warp_patch_exact(a[0], a[1], a[2])
+                != generate_patch_image(a[0], False, a[1], a[2])).sum())
+        for k, a in jobs.items()}
+    check(not any(exact_differ.values()), f"warp_patch_exact vs the numpy "
+          f"warp, values that differ: {exact_differ}")
+    hd = jobs["1280x720 rotation"]
+    exact_ms = host_ms(lambda: native_ops.warp_patch_exact(*hd[:3]), reps=9)
+    numpy_exact_ms = host_ms(
+        lambda: generate_patch_image(hd[0], False, hd[1], hd[2]), reps=3)
+    log(f"host warp_patch_exact ({card}, host clock, median): equal to the "
+        f"numpy warp bit for bit over {len(exact_differ)} frames; one "
+        f"1280x720 -> {out_h}x{out_w} frame {exact_ms:.2f} ms C++, "
+        f"{numpy_exact_ms:.2f} ms numpy ({numpy_exact_ms / exact_ms:.1f}x)")
+
     lsa_err, n_cases = 0.0, 0
     for n in (1, 3, 8, 15, 20):
         for tall in (True, False):
@@ -2157,6 +2176,7 @@ def phase_native_ops(card, out_hw=(600, 800)):
     return dict(build=dict(info), warp_errs=errs, zero_share=zero_share,
                 native_ms=native_ms, numpy_ms=numpy_ms,
                 one_thread_ms=one_thread_ms, four_threads_ms=four_threads_ms,
+                exact_ms=exact_ms, numpy_exact_ms=numpy_exact_ms,
                 lsa_err=lsa_err, lsa_ms=lsa_ms, scipy_ms=scipy_ms)
 
 

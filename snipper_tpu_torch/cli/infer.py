@@ -38,6 +38,7 @@ from snipper_tpu_torch.data.device_preprocess import \
     preprocess_snippet_device
 from snipper_tpu_torch.infer.fast import PROFILE_HELP
 from snipper_tpu_torch.infer.pipeline import (associate_snippets,
+                                              host_warp,
                                               iter_snippet_samples,
                                               prefetched, snippet_index)
 from snipper_tpu_torch.infer.postprocess import decode_predictions
@@ -117,14 +118,15 @@ def serve_snippets(model, cfg, data_dir: str, seq_gap: int,
     the forward issues no collective, and the decoded results reach every
     rank, each carrying its snippet index, through one
     ``all_gather_objects``. Returns ``{"results", "index", "snippets",
-    "seconds", "done_at", "forward_ms", "wait_ms"}``: every snippet's
-    decoded result in snippet order, the ``(frame_indices, all_files)``
-    listing they index, and this rank's count of snippets served, wall
-    time, the host-clock time each of its groups finished (outputs on the
-    host), each group's forward time including the copy of its inputs to
-    the device (and, with ``device_preprocess``, the warp) and of its
-    outputs to the host, and the time each group waited for its decoded
-    (and, on the host path, warped) frames.
+    "seconds", "done_at", "forward_ms", "wait_ms", "host_warp"}``: every
+    snippet's decoded result in snippet order, the ``(frame_indices,
+    all_files)`` listing they index, and this rank's count of snippets
+    served, wall time, the host-clock time each of its groups finished
+    (outputs on the host), each group's forward time including the copy of
+    its inputs to the device (and, with ``device_preprocess``, the warp)
+    and of its outputs to the host, the time each group waited for its decoded
+    (and, on the host path, warped) frames, and where the frames were
+    warped (:func:`~snipper_tpu_torch.infer.pipeline.host_warp`).
 
     Each group's phases are host spans (``record_function``, recorded
     when a profiler runs): ``serve.wait`` (the interval of ``wait_ms``),
@@ -135,6 +137,9 @@ def serve_snippets(model, cfg, data_dir: str, seq_gap: int,
                                              seq_gap)
     world, rank = process_count(group), process_index(group)
     gsz = snippet_batch
+    # builds and loads the host warp here, before the prefetch thread and
+    # the first group's wait
+    warp = host_warp(device_preprocess)
     mine = [i for i in range(len(frame_indices)) if (i // gsz) % world == rank]
     # lazy decode (+ host warp) in a background thread, overlapping the
     # forward
@@ -202,7 +207,7 @@ def serve_snippets(model, cfg, data_dir: str, seq_gap: int,
     return {"results": [r for _, r in merged],
             "index": (frame_indices, all_files), "snippets": len(results),
             "seconds": seconds, "done_at": done_at, "forward_ms": forward_ms,
-            "wait_ms": wait_ms}
+            "wait_ms": wait_ms, "host_warp": warp}
 
 
 def main(argv=None) -> dict:
@@ -253,7 +258,8 @@ def infer(parser, args, device: torch.device) -> dict:
         model.load_state_dict(state)
 
     world = process_count()
-    print0(f"serving {args.data_dir} on {device}"
+    print0(f"serving {args.data_dir} on {device}, warp "
+           f"{host_warp(args.device_preprocess)}"
            + (f", data-parallel over {world} ranks" if world > 1 else ""))
     served = serve_snippets(model, cfg, args.data_dir, args.seq_gap, device,
                             args.snippet_batch, args.device_preprocess)

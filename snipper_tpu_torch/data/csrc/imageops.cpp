@@ -7,12 +7,17 @@
 //     division by 255, a scale per channel and a clip to [0, 1], from a
 //     uint8 [h, w, 3] frame into a float32 [out_h, out_w, 3] buffer the
 //     caller owns.
+//   snipper_warp_patch_exact: serving's warp of a snippet's n frames by one
+//     affine, bit-equal to numpy's transforms.generate_patch_image (no
+//     flip): the same inverse-mapped bilinear zero-border warp and /255,
+//     numpy's arithmetic step for step, from the inverse affine the caller
+//     computed; uint8 [n, h, w, 3] in, float32 [n, out_h, out_w, 3] out.
 //   snipper_lsa: minimum-cost assignment of each row of an [m, n] double
 //     cost (m <= n) to a distinct column, by Jonker-Volgenant shortest
 //     augmenting paths.
 //
-// Both return 0, or a negative code the Python side turns into an error.
-// Neither touches Python state, so ctypes runs them without the GIL.
+// Each returns 0, or a negative code the Python side turns into an error.
+// None touches Python state, so ctypes runs them without the GIL.
 
 #include <algorithm>
 #include <cmath>
@@ -21,6 +26,23 @@
 #include <limits>
 #include <utility>
 #include <vector>
+
+// numpy rounds every product before it adds it; a compiler that fuses
+// `a + b * c` into one FMA (GCC does under -march=native) rounds once, and
+// bit-equality is gone. `rounded` hides a product from the optimizer behind
+// an empty asm that emits no instruction, so it cannot be fused.
+template <typename T>
+static inline T rounded(T v) {
+#if defined(__x86_64__) || defined(__i386__)
+    asm("" : "+x"(v));
+#elif defined(__aarch64__)
+    asm("" : "+w"(v));
+#else
+    volatile T kept = v;
+    v = kept;
+#endif
+    return v;
+}
 
 extern "C" {
 
@@ -73,6 +95,48 @@ int snipper_warp_affine(const uint8_t* src, int h, int w, const double* M,
             for (int c = 0; c < 3; ++c) {
                 const float v = (float)(acc[c] * inv255) * scale[c];
                 o[c] = v < 0.f ? 0.f : (v > 1.f ? 1.f : v);
+            }
+        }
+    }
+    return SNIPPER_OK;
+}
+
+int snipper_warp_patch_exact(const uint8_t* src, int n, int h, int w,
+                             const double* Minv, int out_h, int out_w,
+                             float* out) {
+    if (n < 0 || h <= 0 || w <= 0 || out_h < 0 || out_w < 0)
+        return SNIPPER_BAD_SHAPE;
+    // transforms.warp_affine: the source point in float64, the weights in
+    // float32, the corners added dy outer, dx inner, as float32 w * px
+    for (int y = 0; y < out_h; ++y) {
+        const double by = rounded(Minv[1] * y), ey = rounded(Minv[4] * y);
+        for (int x = 0; x < out_w; ++x) {
+            const double sx = rounded(Minv[0] * x) + by + Minv[2];
+            const double sy = rounded(Minv[3] * x) + ey + Minv[5];
+            const double fx = std::floor(sx), fy = std::floor(sy);
+            const int64_t x0 = (int64_t)fx, y0 = (int64_t)fy;
+            const float ax = (float)(sx - fx), ay = (float)(sy - fy);
+            const float wx[2] = {1.0f - ax, ax};
+            const float wy[2] = {1.0f - ay, ay};
+            // the same point in every frame of the snippet
+            for (int f = 0; f < n; ++f) {
+                const uint8_t* frame = src + (size_t)f * h * w * 3;
+                float acc[3] = {0.f, 0.f, 0.f};
+                // a corner outside the frame adds numpy's +0
+                for (int dy = 0; dy < 2; ++dy) {
+                    const int64_t yy = y0 + dy;
+                    if (yy < 0 || yy >= h) continue;
+                    for (int dx = 0; dx < 2; ++dx) {
+                        const int64_t xx = x0 + dx;
+                        if (xx < 0 || xx >= w) continue;
+                        const uint8_t* px = frame + ((size_t)yy * w + xx) * 3;
+                        const float wgt = wx[dx] * wy[dy];
+                        for (int c = 0; c < 3; ++c)
+                            acc[c] += rounded(wgt * (float)px[c]);
+                    }
+                }
+                float* o = out + (((size_t)f * out_h + y) * out_w + x) * 3;
+                for (int c = 0; c < 3; ++c) o[c] = acc[c] / 255.0f;
             }
         }
     }

@@ -2,12 +2,13 @@
 ``snipper_tpu/data/native_ops.py``.
 
 ``warp_patch`` (the datasets' fused flip + bilinear warp + /255 + colour
-scale + clip) and ``lsa``/``lsa_pairs`` (the eval harness's assignment)
-run in the port's own C++ (``data/csrc/imageops.cpp``, a plain C
-interface), which the host C++ compiler builds into
-``snipper_tpu_torch/_build/`` at first use (``ops/_build.py::build_host``)
-and ``ctypes`` loads. ``ctypes`` releases the GIL for the call, so the
-loader's warp threads run side by side.
+scale + clip), ``warp_patch_exact`` (serving's warp, bit-equal to the
+numpy ``generate_patch_image``) and ``lsa``/``lsa_pairs`` (the eval
+harness's assignment) run in the port's own C++
+(``data/csrc/imageops.cpp``, a plain C interface), which the host C++
+compiler builds into ``snipper_tpu_torch/_build/`` at first use
+(``ops/_build.py::build_host``) and ``ctypes`` loads. ``ctypes`` releases
+the GIL for the call, so the loader's warp threads run side by side.
 
 As the JAX package falls back when its extension is absent, the port falls
 back to numpy (the warp) and scipy (the assignment) only when no C++
@@ -24,7 +25,8 @@ from pathlib import Path
 
 import numpy as np
 
-from snipper_tpu_torch.data.transforms import generate_patch_image
+from snipper_tpu_torch.data.transforms import (_invert_affine,
+                                               generate_patch_image)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "imageops.cpp"
 _SINGULAR, _BAD_SHAPE = -1, -2
@@ -56,6 +58,10 @@ def _open():
         array(np.uint8, 3), i32, i32, f64, i32, i32, i32, f32, f32, f32,
         array(np.float32, 3)]
     lib.snipper_warp_affine.restype = i32
+    lib.snipper_warp_patch_exact.argtypes = [
+        array(np.uint8, 4), i32, i32, i32, f64, i32, i32,
+        array(np.float32, 4)]
+    lib.snipper_warp_patch_exact.restype = i32
     lib.snipper_lsa.argtypes = [f64, i32, i32, array(np.int64, 1)]
     lib.snipper_lsa.restype = i32
     build_info.update(command=res["command"], seconds=res["seconds"],
@@ -103,6 +109,33 @@ def warp_patch(img: np.ndarray, trans: np.ndarray, out_shape,
         raise ValueError("singular affine matrix")
     if rc:
         raise ValueError(f"warp_patch: bad shapes {src.shape} -> "
+                         f"{(out_h, out_w)}")
+    return out
+
+
+def warp_patch_exact(img: np.ndarray, trans: np.ndarray,
+                     out_shape) -> np.ndarray:
+    """``generate_patch_image(img, False, trans, out_shape)`` as float32,
+    bit for bit, for one frame or a stack of frames warped by the same
+    affine in one call: the bilinear zero-border warp by the forward
+    affine ``trans`` and /255, with no flip, colour scale or clip.
+    ``img`` uint8 [..., H, W, 3]; returns float32 [..., out_h, out_w, 3]."""
+    out_h, out_w = (int(v) for v in out_shape)
+    if img.dtype != np.uint8 or img.ndim < 3 or img.shape[-1] != 3:
+        raise ValueError(f"img must be uint8 [..., H, W, 3] (got "
+                         f"{img.dtype} {img.shape})")
+    out = np.empty(img.shape[:-3] + (out_h, out_w, 3), np.float32)
+    frames = np.ascontiguousarray(img).reshape(-1, *img.shape[-3:])
+    outs = out.reshape(-1, out_h, out_w, 3)
+    lib = _load()
+    if not lib:
+        for f, o in zip(frames, outs):
+            o[...] = generate_patch_image(f, False, trans, (out_h, out_w))
+        return out
+    minv = np.ascontiguousarray(_invert_affine(np.asarray(trans, np.float64)))
+    if lib.snipper_warp_patch_exact(frames, *frames.shape[:3], minv, out_h,
+                                    out_w, outs):
+        raise ValueError(f"warp_patch_exact: bad shapes {img.shape} -> "
                          f"{(out_h, out_w)}")
     return out
 

@@ -5,7 +5,8 @@ The port's own copy of the host functions of
 
 - ``snippet_index``: snippet start stride ``gap * (T - 1)``, so consecutive
   snippets overlap by exactly one frame.
-- ``iter_snippet_samples``: lazy decode + centre affine resize on the host,
+- ``iter_snippet_samples``: lazy decode + centre affine resize on the host
+  (the C++ ``native_ops.warp_patch_exact``, bit-equal to the numpy warp),
   or decode alone for the warp on the device.
 - ``associate_snippets``: greedy bidirectional-argmin identity propagation
   over the shared frame; matched poses on the overlap are score-weighted
@@ -22,8 +23,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 from torch.profiler import record_function
 
-from snipper_tpu_torch.data.transforms import (gen_trans_from_patch,
-                                               generate_patch_image)
+from snipper_tpu_torch.data import native_ops
+from snipper_tpu_torch.data.transforms import gen_trans_from_patch
 
 
 def transform_pts_np(pts: np.ndarray, trans: np.ndarray) -> np.ndarray:
@@ -104,7 +105,11 @@ def iter_snippet_samples(data_dir: str, num_frames: int, gap: int,
     instead of ``imgs``.
 
     ``index``: a precomputed ``(frame_indices, all_files)`` from
-    :func:`snippet_index`, the same listing the caller associates against."""
+    :func:`snippet_index`, the same listing the caller associates against.
+
+    On the host the snippet's frames are warped in one call of
+    ``native_ops.warp_patch_exact``, equal bit for bit to
+    ``generate_patch_image`` (:func:`host_warp` says which ran)."""
     frame_indices, all_files = (index if index is not None
                                 else snippet_index(data_dir, num_frames,
                                                    gap))
@@ -131,10 +136,16 @@ def iter_snippet_samples(data_dir: str, num_frames: int, gap: int,
             sample["raw_imgs"] = imgs.astype(np.uint8)
             sample["trans"] = trans.astype(np.float32)
         else:
-            sample["imgs"] = np.stack(
-                [generate_patch_image(im, False, trans, (h, w))
-                 for im in imgs]).astype(np.float32)
+            sample["imgs"] = native_ops.warp_patch_exact(imgs, trans, (h, w))
         yield sample
+
+
+def host_warp(warp_on_device: bool) -> str:
+    """Where :func:`iter_snippet_samples` warps: ``"device"``, or on the
+    host ``"native"`` (C++) or ``"numpy"`` (no C++ compiler found)."""
+    if warp_on_device:
+        return "device"
+    return "native" if native_ops.have_native() else "numpy"
 
 
 def prefetched(it, depth: int = 2):

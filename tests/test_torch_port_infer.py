@@ -107,6 +107,49 @@ def test_snippet_samples_match_jax(tmp_path):
                 np.testing.assert_array_equal(g[k], w[k])
 
 
+def test_serve_snippets_reports_host_warp(tmp_path):
+    """``host_warp`` names the warp that ran: the C++ one with a compiler,
+    numpy without (the same frames reach the forward), the device's with
+    ``device_preprocess``."""
+    from unittest import mock
+
+    from snipper_tpu_torch.config import Config
+    from snipper_tpu_torch.data import native_ops
+
+    cfg = Config.tiny()
+    data_dir = _frames_dir(tmp_path, n=4)
+    seen = []
+
+    def forward(imgs):
+        seen.append(imgs.clone())
+        b, t = imgs.shape[:2]
+        n, k = cfg.num_queries, cfg.num_kpts
+        return {"pred_logits": torch.zeros(b, n, t, 2),
+                "pred_kpts2d": torch.zeros(b, n, t, k, 3),
+                "pred_depth": torch.zeros(b, n, t, k, 1)}
+
+    def serve(device_preprocess=False):
+        seen.clear()
+        out = port_cli.serve_snippets(forward, cfg, data_dir, 1,
+                                      torch.device("cpu"),
+                                      device_preprocess=device_preprocess)
+        assert out["snippets"] == len(seen) == 3
+        return out["host_warp"], torch.cat(seen)
+
+    if native_ops.have_native():
+        kind, native = serve()
+        assert kind == "native"
+    else:
+        native = None
+    with mock.patch.object(native_ops, "_lib", False):
+        kind, numpy_imgs = serve()
+    assert kind == "numpy"
+    if native is not None:
+        assert torch.equal(native, numpy_imgs)
+    kind, device_imgs = serve(device_preprocess=True)
+    assert kind == "device" and device_imgs.shape == numpy_imgs.shape
+
+
 def test_extract_video_frames_matches_jax(tmp_path):
     cv2 = pytest.importorskip("cv2")
     rng = np.random.default_rng(3)

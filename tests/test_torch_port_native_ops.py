@@ -6,10 +6,13 @@ compiler builds into ``snipper_tpu_torch/_build/``; it is held against
 JAX's ``warp_patch`` (its C++ extension where built, else its numpy path)
 and against the port's numpy path within 1e-5. ``lsa``/``lsa_pairs`` give
 JAX's pairs where JAX's extension loads and scipy's optimal cost within
-1e-9. The build rules (a rebuild when the source is newer, a stand-in
-compiler) and the fallback rule (numpy and scipy, with one warning, only
-when no compiler is found; a failed build or load raises) are checked
-apart. Tests that need a real compiler skip when none is found.
+1e-9. ``warp_patch_exact`` (serving's warp) equals the numpy
+``generate_patch_image`` bit for bit, in one thread or two, with a
+compiler or without. The build rules (a rebuild when the source is
+newer, a stand-in compiler) and the fallback rule (numpy and scipy, with
+one warning, only when no compiler is found; a failed build or load
+raises) are checked apart. Tests that need a real compiler skip when
+none is found.
 """
 
 import os
@@ -18,6 +21,7 @@ import subprocess
 import threading
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -103,6 +107,80 @@ def test_warp_threads_agree_with_one(cxx):
         four = list(pool.map(warp, frames))
     for a, b in zip(one, four):
         np.testing.assert_array_equal(a, b)
+
+
+# serving's warp: (source H, W), output (h, w), crop scale over the cover
+# scale, centre as shares of W and H, rotation
+EXACT_CASES = {
+    "zoom_out_zero_border": ((40, 56), (32, 48), 2.5, (0.5, 0.5), 0.0),
+    "zoom_in": ((40, 56), (32, 48), 0.3, (0.5, 0.5), 0.0),
+    "odd_sizes": ((37, 53), (29, 47), 1.0, (0.5, 0.5), 0.0),
+    "off_centre_rotated": ((41, 57), (31, 45), 1.3, (0.2, 0.85), 17.0),
+}
+
+
+def _exact_case(name, seed=0):
+    (H, W), (h, w), zoom, (cx, cy), rot = EXACT_CASES[name]
+    img = np.random.default_rng(seed).integers(0, 256, (H, W, 3), np.uint8)
+    scale = max(W / w, H / h) * zoom
+    trans = jtransforms.gen_trans_from_patch(W * cx, H * cy, w * scale,
+                                             h * scale, w, h, rot)
+    want = generate_patch_image(img, False, trans, (h, w)).astype(np.float32)
+    return img, trans, (h, w), want
+
+
+@pytest.mark.parametrize("name", list(EXACT_CASES))
+def test_warp_patch_exact_equals_numpy(cxx, name):
+    img, trans, shape, want = _exact_case(name)
+    got = native_ops.warp_patch_exact(img, trans, shape)
+    assert native_ops.have_native()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert np.array_equal(got, want)
+    # a snippet's frames in one call
+    frames = np.stack([img, img[::-1, ::-1]])
+    snippet = native_ops.warp_patch_exact(frames, trans, shape)
+    assert snippet.shape == (2, *want.shape)
+    assert np.array_equal(snippet[0], want)
+    assert np.array_equal(snippet[1], generate_patch_image(
+        frames[1], False, trans, shape).astype(np.float32))
+    if name == "zoom_out_zero_border":
+        assert (got == 0).mean() > 0.3
+
+
+def test_warp_patch_exact_two_threads_agree_with_one(cxx):
+    """Two threads warping at once (the GIL released in the call) give the
+    frames one thread gives, each equal to the numpy warp."""
+    cases = [_exact_case(name, seed) for seed in range(2)
+             for name in EXACT_CASES]
+
+    def warp(c):
+        return native_ops.warp_patch_exact(c[0], c[1], c[2])
+
+    one = [warp(c) for c in cases]
+    with ThreadPoolExecutor(2) as pool:
+        two = list(pool.map(warp, cases))
+    for a, b, c in zip(one, two, cases):
+        assert np.array_equal(a, b) and np.array_equal(a, c[3])
+
+
+def test_warp_patch_exact_without_compiler_is_numpy():
+    img, trans, shape, want = _exact_case("off_centre_rotated")
+    with mock.patch.object(native_ops, "_lib", False):
+        got = native_ops.warp_patch_exact(img, trans, shape)
+        two = native_ops.warp_patch_exact(np.stack([img, img]), trans, shape)
+    assert got.dtype == two.dtype == np.float32
+    assert np.array_equal(got, want)
+    assert np.array_equal(two, np.stack([want, want]))
+
+
+def test_warp_patch_exact_rejects_bad_input():
+    img, trans, shape, _ = _exact_case("odd_sizes")
+    with pytest.raises(ValueError, match="uint8"):
+        native_ops.warp_patch_exact(img.astype(np.float32), trans, shape)
+    with pytest.raises(ValueError, match="uint8"):
+        native_ops.warp_patch_exact(img[..., :2], trans, shape)
+    with pytest.raises(ValueError, match="uint8"):
+        native_ops.warp_patch_exact(img[0], trans, shape)
 
 
 @pytest.mark.parametrize("shape", [(5, 9), (8, 8), (1, 4), (9, 5), (0, 3),
