@@ -33,7 +33,7 @@ import time
 import numpy as np
 import torch
 
-from benchmark import generate, harness
+from benchmark import generate, harness, tracing
 from benchmark.counts import flops as flop_counts
 from benchmark.reference import model as ref_model
 from benchmark.reference import postprocess as ref_post
@@ -110,6 +110,12 @@ def _serve(ctx, cli_infer, cfg, model, library, plan, gap, dev_warp):
             (cli_infer, "to_device", "upload_warp", False),
             (cli_infer, "decode_predictions", "decode", False)]):
         serve(library[2])
+        # an untraced run records the device's activity over the whole
+        # window: the card time of every snippet it serves
+        busy = tracing.DeviceBusy() if not ctx.trace \
+            and ctx.device.type == "cuda" else None
+        if busy is not None:
+            busy.start()
         ctx.setup_done()
         window_open = True
         served = []
@@ -123,6 +129,7 @@ def _serve(ctx, cli_infer, cfg, model, library, plan, gap, dev_warp):
         window_open = False
         ctx.trace_close(len(calls))
     ctx.window_closed()
+    card = busy.stop() if busy is not None else None
     del model
     ctx.free()
 
@@ -153,15 +160,28 @@ def _serve(ctx, cli_infer, cfg, model, library, plan, gap, dev_warp):
                                             ctx.seconds, ctx),
         flops_per_unit=flop_counts.model_flops(c, 1),
         unit_batch=1, precision=ctx.cfg_doc["precision"])
-    e2e = {"serve_snippets_per_s": n_in / ctx.seconds}
+    # the card's busy time over every snippet of the window's videos (the
+    # last one's included: it ran to its end under the same recording)
+    n_all = sum(len(o["results"]) for _, o, _, _, _ in served)
+    e2e = {"serve_device_ms_per_snippet":
+           card and 1e3 * card["busy_s"] / n_all}
 
     persons = [int(np.sum(np.asarray(r["human_score"]).max(1) > 0.5))
                for _, o, _, _, _ in served for r in o["results"]]
-    diag = {"wait_ms": float(np.mean(waits)),
+    diag = {"snippets_per_s": n_in / ctx.seconds,
+            "card": card, "wait_ms": float(np.mean(waits)),
             "forward_ms": float(np.mean(fwds)),
             "decode_ms": float(np.mean(ends - done_at) * 1e3),
             "associate_ms_per_video": float(np.mean(
                 [o["associate_ms"] for _, o, _, _, _ in served])),
+            "wait_ms_quartiles": np.percentile(waits, [25, 50, 75]).tolist(),
+            "forward_ms_quartiles": np.percentile(fwds, [25, 50, 75]).tolist(),
+            # snippets decoded in each fifth of the window: a stall shows
+            # as one fifth short
+            "snippets_by_fifth": np.bincount(
+                np.minimum(((ends[inside] - t_open) / ctx.seconds * 5)
+                           .astype(int), 4), weights=sizes[inside],
+                minlength=5).tolist(),
             "videos": len(served), "persons_per_snippet": float(
                 np.mean(persons)),
             "frame_kb": float(np.mean([

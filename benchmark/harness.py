@@ -118,6 +118,7 @@ class Context:
         self.cache = CACHE
         self.marks: Dict[str, float] = {}
         self.t_closed = None
+        self._usage = None
 
     def mark(self, name: str):
         """Seconds since the process started, at the end of a part of
@@ -128,12 +129,18 @@ class Context:
     def setup_done(self):
         self.sync()
         self.setup_s = time.perf_counter() - self.t_start
+        self._usage = _usage()
 
     def window_closed(self):
         import torch
 
         self.sync()
         self.t_closed = time.perf_counter()
+        if self._usage is not None:
+            # the CPU seconds this process took in the window
+            end = _usage()
+            self.data["window_host"] = {k: end[k] - self._usage[k]
+                                        for k in end}
         if self.device.type == "cuda":
             self.memory_peak = int(torch.cuda.max_memory_allocated(
                 self.device))
@@ -256,6 +263,13 @@ def spans_around(ctx: Context, calls):
 _END = object()
 
 
+def _usage() -> Dict[str, float]:
+    import resource
+
+    r = resource.getrusage(resource.RUSAGE_SELF)
+    return {"user_s": r.ru_utime, "sys_s": r.ru_stime}
+
+
 def untraced_rate(count: int, seconds: float, ctx: "Context"
                   ) -> Optional[float]:
     """Units per second outside the tracing's sub-windows, None when too
@@ -336,6 +350,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
             "idle_gaps": [[k, v] for k, v in gaps]}
     result["setup_parts"] = ctx.marks
     result["diag"] = out.get("diag", {})
+    if "window_host" in ctx.data:
+        result["diag"]["window_host"] = ctx.data["window_host"]
     if trace:
         # seconds a unit took in each sub-window and outside them: what
         # the tracing costs the host

@@ -17,7 +17,7 @@ of every earlier decoder layer as auxiliary losses.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -107,7 +107,11 @@ def _gather(pred, src):
     return torch.gather(pred, 1, idx.expand(src.shape + pred.shape[2:]))
 
 
-def loss_set(logits, kpts2d, depth, targets, src, num_traj, cfg):
+def loss_set(logits, kpts2d, depth, targets, src, num_traj, cfg,
+             share=1.0):
+    """The losses of one decoder layer. ``share``: the share of the
+    batch's rows that ``targets`` hold, which scales the class term's
+    mean (the other terms are sums over ``num_traj``)."""
     t_k = targets["kpts2d"].float()
     t_d = targets["depth"].float()
     valid_b = targets["valid"].bool()
@@ -126,7 +130,7 @@ def loss_set(logits, kpts2d, depth, targets, src, num_traj, cfg):
     logp = torch.log_softmax(logits.float(), -1)
     class_w = torch.tensor([cfg["eos_coef"], 1.0], device=logp.device)
     picked = torch.gather(logp, -1, classes[..., None])[..., 0]
-    out["loss_is_human"] = torch.mean(-picked * class_w[classes])
+    out["loss_is_human"] = torch.mean(-picked * class_w[classes]) * share
 
     t_root = t_k[:, :, :, :1]
     t_root_vis = t_root[..., 2:3]
@@ -217,11 +221,21 @@ def heatmap_targets(kpts2d, valid, T, h, w):
 
 
 def criterion(out: Dict[str, torch.Tensor], targets: Dict[str, torch.Tensor],
-              cfg: dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
-                                  List[np.ndarray]]:
-    """``(total, losses, src per layer, the last layer's first)``."""
+              cfg: dict, batch_valid: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                         List[np.ndarray]]:
+    """``(total, losses, src per layer, the last layer's first)``.
+
+    ``batch_valid``: the whole batch's ``valid`` where ``out`` and
+    ``targets`` are a block of its rows. The block's losses then take the
+    whole batch's normalisers (``num_traj`` from the whole batch, the class
+    term's mean scaled by the block's share of the rows; the heatmap term
+    is a sum), so that the blocks' totals and gradients sum to the whole
+    batch's. The matching is per sample, so blocks leave it as it is."""
     valid = targets["valid"]
-    num_traj = torch.clamp(torch.sum(valid.float()), min=1.0)
+    whole = valid if batch_valid is None else batch_valid
+    num_traj = torch.clamp(torch.sum(whole.float()), min=1.0)
+    share = valid.shape[0] / whole.shape[0]
     layers = [(out["pred_logits"], out["pred_kpts2d"], out["pred_depth"])]
     n_aux = out["aux_logits"].shape[0] if "aux_logits" in out else 0
     layers += [(out["aux_logits"][i], out["aux_kpts2d"][i],
@@ -234,7 +248,7 @@ def criterion(out: Dict[str, torch.Tensor], targets: Dict[str, torch.Tensor],
         srcs.append(assign(c, valid))
     dev = valid.device
     losses = loss_set(*layers[0], targets, torch.from_numpy(srcs[0]).to(dev),
-                      num_traj, cfg)
+                      num_traj, cfg, share)
     hm = 0.0
     for m in out["heatmaps"]:
         B, T, h, w, nh, K = m.shape
@@ -243,7 +257,8 @@ def criterion(out: Dict[str, torch.Tensor], targets: Dict[str, torch.Tensor],
     losses["loss_heatmap"] = hm
     for i in range(n_aux):
         aux = loss_set(*layers[1 + i], targets,
-                       torch.from_numpy(srcs[1 + i]).to(dev), num_traj, cfg)
+                       torch.from_numpy(srcs[1 + i]).to(dev), num_traj, cfg,
+                       share)
         losses.update({f"{k}_{i}": v for k, v in aux.items()})
     weights = loss_weights(cfg)
     total = 0.0

@@ -6,11 +6,17 @@ AdamW update (betas 0.9 / 0.999, eps 1e-8, decoupled weight decay) with
 the backbone at ``lr_backbone``, the reference-point and sampling-offset
 projections at ``lr * lr_linear_proj_mult`` and the rest at ``lr``. The
 frozen tensors (``model.frozen``) get no gradient and no update.
+
+The forward, the criterion and the backward may run over blocks of rows of
+the batch, so that a large batch fits the card: each block's loss takes the
+whole batch's normalisers (``criterion.criterion``'s ``batch_valid``), and
+the blocks' gradients are summed in f64 before the clip and the update,
+which see the whole batch's gradient.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -48,12 +54,14 @@ class AdamW:
 
 
 def train_steps(P: Dict[str, torch.Tensor], batches: List[Dict], cfg: dict,
-                prec: Precision = Precision()) -> Dict:
-    """Run one update per batch from weights ``P`` (left as they are).
-    Returns ``loss`` (per step), ``grad`` (the first step's clipped
-    gradient, as the optimizer receives it, by name), ``start`` and
-    ``params`` (the trained tensors before the first and after the last
-    step)."""
+                prec: Precision = Precision(),
+                rows: Optional[int] = None) -> Dict:
+    """Run one update per batch from weights ``P`` (left as they are),
+    the forward and backward over blocks of ``rows`` rows (the whole batch
+    at once when None). Returns ``loss`` (per step, the sum of the blocks'
+    totals), ``grad`` (the first step's clipped gradient, as the optimizer
+    receives it, by name), ``start`` and ``params`` (the trained tensors
+    before the first and after the last step)."""
     trained = {k: v.detach().clone() for k, v in P.items()
                if not ref_model.frozen(k)}
     fixed = {k: v.detach() for k, v in P.items() if ref_model.frozen(k)}
@@ -63,22 +71,35 @@ def train_steps(P: Dict[str, torch.Tensor], batches: List[Dict], cfg: dict,
     for batch in batches:
         leaves = {k: v.requires_grad_(True) for k, v in trained.items()}
         names = list(leaves)
-        # the network and its backward in the step's precision, the
-        # criterion in f32 (the bf16 recipe's criterion reads f32)
-        with prec.everywhere():
-            out = ref_model.forward({**fixed, **leaves}, batch["images"],
-                                    cfg, prec)
-        total, _, _ = crit.criterion(out, batch["targets"], cfg)
-        with prec.everywhere():
-            gs = torch.autograd.grad(total, [leaves[k] for k in names])
-        norm = torch.sqrt(sum(torch.sum(g.double() ** 2) for g in gs))
+        n = batch["images"].shape[0]
+        step = rows or n
+        total, gs = 0.0, None
+        for a in range(0, n, step):
+            block = {"images": batch["images"][a:a + step],
+                     "targets": {k: v[a:a + step]
+                                 for k, v in batch["targets"].items()}}
+            # the network and its backward in the step's precision, the
+            # criterion in f32 (the bf16 recipe's criterion reads f32)
+            with prec.everywhere():
+                out = ref_model.forward({**fixed, **leaves}, block["images"],
+                                        cfg, prec)
+            loss, _, _ = crit.criterion(out, block["targets"], cfg,
+                                        batch["targets"]["valid"])
+            with prec.everywhere():
+                g = torch.autograd.grad(loss, [leaves[k] for k in names])
+            g = [x.double() for x in g]
+            gs = g if gs is None else [x + y for x, y in zip(gs, g)]
+            total += float(loss.detach())
+            del out, loss, g
+        norm = torch.sqrt(sum(torch.sum(g ** 2) for g in gs))
         scale = (cfg["clip_max_norm"] / norm if norm >= cfg["clip_max_norm"]
                  else torch.ones((), dtype=torch.float64))
-        grads = {k: (g.double() * scale).float() for k, g in zip(names, gs)}
+        grads = {k: (g * scale).float() for k, g in zip(names, gs)}
+        del gs
         for v in trained.values():
             v.requires_grad_(False)
         opt.step(trained, grads)
-        losses.append(float(total.detach()))
+        losses.append(total)
         if first is None:
             first = grads
     return {"loss": losses, "grad": first, "start": start,

@@ -47,12 +47,20 @@ def _few_threads():
 def with_parked(man: dict) -> dict:
     """``man`` with the cells kept out of BENCHMARK.json for now
     (``benchmark/parked/<cell>.json``: the cell's entry and its metrics),
-    so that their drivers, checks and readers stay tested."""
+    so that their drivers, checks and readers stay tested. A parked metric
+    that BENCHMARK.json also has adds its cells to that entry (one that
+    lists no cells reports in every cell already)."""
     man = json.loads(json.dumps(man))
     for path in sorted((ROOT / "benchmark" / "parked").glob("*.json")):
         doc = json.loads(path.read_text())
-        for key in ("workloads", "end_to_end", "per_layer"):
-            man[key] += doc.get(key, [])
+        man["workloads"] += doc.get("workloads", [])
+        for key in ("end_to_end", "per_layer"):
+            have = {m["name"]: m for m in man[key]}
+            for m in doc.get(key, []):
+                if m["name"] not in have:
+                    man[key].append(m)
+                elif "workloads" in have[m["name"]]:
+                    have[m["name"]]["workloads"] += m["workloads"]
     return man
 
 

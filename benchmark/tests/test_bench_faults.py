@@ -5,6 +5,7 @@ cards to leave out)."""
 from unittest import mock
 
 import numpy as np
+import pytest
 
 from conftest import run_tiny
 
@@ -43,7 +44,11 @@ def test_eval_answer_altered():
     assert not r["correct"]
 
 
-def test_train_state_unchanged():
+TRAIN_CELLS = ["train_t4f2_b2", "train_t4f2_b8"]
+
+
+@pytest.mark.parametrize("cell", TRAIN_CELLS)
+def test_train_state_unchanged(cell):
     from snipper_tpu_torch.train import step
 
     def no_update(state, grads, norm):
@@ -51,13 +56,14 @@ def test_train_state_unchanged():
         state.updates += 1
 
     with mock.patch.object(step, "apply_update", no_update):
-        r = run_tiny("train_t4f2_b2")
+        r = run_tiny(cell)
     assert not r["correct"]
     assert r["checks"]["change_gap"]["value"] > \
         r["checks"]["change_gap"]["limit"]
 
 
-def test_train_half_batch():
+@pytest.mark.parametrize("cell", TRAIN_CELLS)
+def test_train_half_batch(cell):
     from snipper_tpu_torch.train import engine
 
     real = engine.train_step
@@ -69,5 +75,5 @@ def test_train_half_batch():
         return real(state, crit, cut, gen, **k)
 
     with mock.patch.object(engine, "train_step", half):
-        r = run_tiny("train_t4f2_b2")
+        r = run_tiny(cell)
     assert not r["correct"]

@@ -40,10 +40,18 @@ def test_manifest_keys_and_names():
     for m in man["end_to_end"]:
         assert m["source"] in ("host_clock", "device_trace")
         assert 0.01 <= m["bound"] <= 0.25 and UNIT.match(m["unit"])
+    cells = [w["name"] for w in man["workloads"]]
     for m in man["per_layer"]:
         assert m["moves"] in e2e and NAME.match(m["name"])
         assert set(m) <= {"name", "unit", "better", "source", "layer",
                           "moves", "workloads"}
+        # each cell a metric lists is a cell of the manifest that reports
+        # the end-to-end metric it moves (the training metrics: the
+        # batch-8 cell)
+        moves = next(e for e in man["end_to_end"] if e["name"] == m["moves"])
+        for cell in m.get("workloads", cells):
+            assert cell in cells, (m["name"], cell)
+            assert cell in moves.get("workloads", [cell]), (m["name"], cell)
     names = [m["name"] for m in man["end_to_end"] + man["per_layer"]]
     assert len(names) == len(set(names))
 

@@ -158,3 +158,41 @@ def test_warps_match():
                                     (h, w)).numpy()[0]
     assert np.abs(host - want).max() < 1e-4
     assert np.abs(dev - want).max() < 2e-3
+
+
+@pytest.fixture(scope="module")
+def whole_batch_steps(setup):
+    """Three updates at batch 4 over the whole batch at once; the second
+    batch holds a sample of no person, so that its block's own target
+    count is not the batch's."""
+    c, P = setup
+    c = dict(c, dropout=0.0)
+    s = generate.samples(c, 12, 7, torch.device("cpu"))
+    t = s[5]["targets"]
+    t["valid"][:] = False
+    t["kpts2d"][:] = 0.0
+    t["depth"][:] = 0.0
+    from benchmark.drivers.train import _device_batch
+
+    batches = [_device_batch(s, list(range(i, i + 4)), torch.device("cpu"))
+               for i in (0, 4, 8)]
+    return c, P, batches, ref_train.train_steps(P, batches, c)
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+def test_training_in_blocks_of_rows_is_the_whole_batch(whole_batch_steps,
+                                                       rows):
+    """The reference over blocks of rows against the whole batch: the step
+    losses, every leaf's first clipped gradient and the norm of every
+    leaf's change after 3 steps (the norms the check compares), within
+    1e-5 relative: f32 sums taken in another order."""
+    c, P, batches, want = whole_batch_steps
+    got = ref_train.train_steps(P, batches, c, rows=rows)
+    assert got["loss"] == pytest.approx(want["loss"], rel=1e-5)
+    for k, g in want["grad"].items():
+        gap = torch.linalg.vector_norm(got["grad"][k] - g)
+        assert float(gap) <= 1e-5 * float(torch.linalg.vector_norm(g)), k
+    for k, p in want["params"].items():
+        moved = torch.linalg.vector_norm(got["params"][k] - P[k])
+        assert float(moved) == pytest.approx(float(torch.linalg.vector_norm(
+            p - P[k])), rel=1e-5), k

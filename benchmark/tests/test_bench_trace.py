@@ -67,3 +67,30 @@ def test_untraced_serving_patches_nothing():
         infer.serve_snippets = serve
     assert seen and all(seen)
     assert r["correct"] and r["attempted"] > 0
+
+
+def test_device_busy_is_the_union_of_device_events():
+    """The whole-window recording counts the device's own events once
+    where they overlap, and leaves out host events and a span's range on
+    the device's lane."""
+    from types import SimpleNamespace
+    from unittest import mock
+
+    from torch.autograd import DeviceType
+
+    from benchmark import tracing
+
+    def ev(dev, a, d, note=False):
+        return SimpleNamespace(device_type=lambda: dev, start_ns=lambda: a,
+                               duration_ns=lambda: d,
+                               is_user_annotation=lambda: note)
+
+    events = [ev(DeviceType.CUDA, 0, 10), ev(DeviceType.CUDA, 5, 10),
+              ev(DeviceType.CUDA, 40, 5), ev(DeviceType.CPU, 0, 100),
+              ev(DeviceType.CUDA, 0, 100, note=True)]
+    prof = mock.Mock()
+    prof.profiler.kineto_results.events.return_value = events
+    busy = tracing.DeviceBusy()
+    busy.prof = prof
+    out = busy.stop()
+    assert out["busy_s"] == pytest.approx(20e-9) and out["events"] == 3

@@ -73,6 +73,41 @@ class Tracer:
         return out
 
 
+class DeviceBusy:
+    """The device's activity alone (CUDA: kernels, copies, fills) over a
+    whole window, reduced in memory to its busy seconds: no export, no
+    host operators recorded, so the host's enqueue runs as untraced."""
+
+    def __init__(self):
+        self.prof = None
+
+    def start(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.start()
+
+    def stop(self) -> dict:
+        """``{"busy_s", "events", "stop_s"}``: the union of the device
+        events' intervals, their count, and the seconds this stop took."""
+        from torch.autograd import DeviceType
+
+        t0 = time.perf_counter()
+        self.prof.stop()
+        spans = []
+        for e in self.prof.profiler.kineto_results.events():
+            # the device's own events (a range that a span marks on the
+            # device's lane is not work)
+            if e.device_type() == DeviceType.CUDA and not getattr(
+                    e, "is_user_annotation", lambda: False)():
+                a = e.start_ns()
+                spans.append((a, a + e.duration_ns()))
+        self.prof = None
+        busy = _union(spans)
+        return {"busy_s": sum(b - a for a, b in busy) / 1e9,
+                "events": len(spans), "stop_s": time.perf_counter() - t0}
+
+
 def _union(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
     merged = []
     for a, b in sorted(intervals):
