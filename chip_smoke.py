@@ -263,15 +263,52 @@ def log(msg):
 
 def zero_counts():
     """Set the launch count of every kernel a training or eval path runs
-    to 0: the two MSDA kernels and the assignment."""
+    to 0: the two MSDA kernels and the assignment; and the train step's
+    CUDA graph captures and replays."""
     from snipper_tpu_torch.ops.lsa import lsa_rows
     from snipper_tpu_torch.ops.msda import ms_deform_attn
+    from snipper_tpu_torch.train.step import StepGraph
 
     ms_deform_attn.launches = 0
     ms_deform_attn.backward_launches = 0
     ms_deform_attn.launches_by_dtype.update(f32=0, bf16=0)
     ms_deform_attn.backward_launches_by_dtype.update(f32=0, bf16=0)
     lsa_rows.launches = 0
+    StepGraph.captures = StepGraph.replays = 0
+
+
+def graph_counts():
+    """The train step's CUDA graph captures and replays since
+    :func:`zero_counts` (``train/step.py::StepGraph``)."""
+    from snipper_tpu_torch.train.step import StepGraph
+
+    return {"captures": StepGraph.captures, "replays": StepGraph.replays}
+
+
+def wrapper_steps(steps, graph):
+    """Of ``steps`` train steps, those that called the kernels' wrappers,
+    given their ``graph`` counts: the eager steps and the captures. A
+    replay runs the kernels its capture recorded and calls no wrapper, so
+    the wrappers' counts leave it out; the profiler counts its kernels
+    (:func:`replay_launches`)."""
+    return steps - graph["replays"] + graph["captures"]
+
+
+def replay_launches(fn):
+    """The MSDA kernels (by the value's dtype) and the assignment kernels
+    that one call of ``fn`` ran on the card, by torch.profiler's counts:
+    what a train step that replays its CUDA graph launches."""
+    kernels = profiled_kernels(fn, need=("msda_forward_kernel",
+                                         "msda_backward_kernel",
+                                         "lsa_rows_kernel"))
+
+    def n(name):
+        return sum(e.count for e in kernels if name in e.key)
+
+    return {f"msda_{k}": {"f32": n(f"msda_{k}_kernel<float"),
+                          "bf16": n(f"msda_{k}_kernel<__nv_bfloat16")}
+            for k in ("forward", "backward")} | {
+        "lsa_rows": n("lsa_rows_kernel")}
 
 
 def dtype_counts():
@@ -1184,7 +1221,8 @@ def probe_model_runs(K=8, train_K=2, split_K=3):
     after: one ``msda_forward`` launch per layer and forward call (the
     forward: the overflow read, the warm-up and 2 x K timed calls per
     point), 12 forward and 12 backward launches and one ``lsa_rows`` per
-    train step (the first step and K), none under
+    train step that calls the wrappers (the first step and the capture of
+    the CUDA graph that the K timed steps replay), none under
     ``deform_impl="skip"``."""
     from snipper_tpu_torch.config import Config
 
@@ -1217,13 +1255,18 @@ def probe_model_runs(K=8, train_K=2, split_K=3):
                   for ln in forward_lines), f"probe forward: {out}")
 
     out, train_n = run(["train", "-K", str(train_K), "--device", "cuda"])
+    graph = graph_counts()
     tf, tb, tl = train_n.values()
     per = Config.canonical_t4_f2().enc_layers \
         + Config.canonical_t4_f2().dec_layers
-    steps = 1 + train_K
-    check((tf, tb, tl) == (per * steps, per * steps, steps),
-          f"probe train: {tf} + {tb} + {tl} launches in {steps} steps, "
-          f"expected {per} + {per} + 1 per step")
+    # two warm steps (eager, capture) and K replays: the wrappers count
+    # the first two
+    steps = wrapper_steps(2 + train_K, graph)
+    check(graph == {"captures": 1, "replays": 1 + train_K}
+          and (tf, tb, tl) == (per * steps, per * steps, steps),
+          f"probe train: {tf} + {tb} + {tl} launches in {steps} steps that "
+          f"called the wrappers ({graph}), expected {per} + {per} + 1 per "
+          f"step")
     train_line = [ln for ln in out.splitlines() if ln.startswith("train ")]
 
     out, split_n = run(["split", "-K", str(split_K), "--device", "cuda"])
@@ -1327,7 +1370,8 @@ def breakdown(fn, top=8, reps=5, need=("msda_forward",)):
     """Device time of one call of ``fn`` by kernel (torch.profiler), its
     wall time (CUDA events, median of ``reps``) and the device's busy
     share of that wall time. ``need``: the kernels that ``fn`` launches
-    whose times are reported apart."""
+    whose times are reported apart; their launches in the profiled call
+    are counted by name (``launches``)."""
     import torch
 
     for _ in range(2):
@@ -1346,7 +1390,9 @@ def breakdown(fn, top=8, reps=5, need=("msda_forward",)):
                 busy_share=(total_us / 1e3) / wall_ms if wall_ms else None,
                 msda_ms=msda_us["msda_forward"],
                 msda_backward_ms=msda_us["msda_backward"], top=rows,
-                kernel_launches=sum(e.count for e in kernels))
+                kernel_launches=sum(e.count for e in kernels),
+                launches={name: sum(e.count for e in kernels
+                                    if name in e.key) for name in need})
 
 
 def forward_breakdown(model, x):
@@ -1956,7 +2002,11 @@ def phase_profile_labels(work, card, real_root, steps=4):
     before and read just after: the trace exists and its summary names
     ``msda_forward`` and ``msda_backward`` with device time, and the
     matching's host span; taken again (up to three runs) when the profiler
-    drops the run's device events. (b) ``cli.dump_labels`` on the
+    drops the run's device events. The step runs as a CUDA graph: the
+    profiled steps are replays, so the span of their host time is
+    ``train.replay`` (the matching's ``match_layers`` opens only on the
+    eager first step and in the capture), and the wrappers count the
+    eager step's and the capture's launches. (b) ``cli.dump_labels`` on the
     PoseTrack18-format val split that phase_train_real wrote: one pickle
     entry per sample and the ``--vis 2`` renders."""
     import torch
@@ -1985,12 +2035,15 @@ def phase_profile_labels(work, card, real_root, steps=4):
                 "--profile_steps", "2", "--output_dir",
                 os.path.join(work, f"train_prof{attempt}"),
                 "--device", "cuda"])
-        launches = counts()
+        launches, graph = counts(), graph_counts()
         # ------------------------------------------------------------------
-        check(launches == {"msda_forward": per_pass * steps,
-                           "msda_backward": per_pass * steps,
-                           "lsa_rows": steps},
-              f"profiled training launches {launches} in {steps} steps")
+        called = wrapper_steps(steps, graph)
+        check(graph == {"captures": 1, "replays": steps - 1}
+              and launches == {"msda_forward": per_pass * called,
+                               "msda_backward": per_pass * called,
+                               "lsa_rows": called},
+              f"profiled training launches {launches} in {steps} steps, "
+              f"{graph}")
         top = summarize_trace(prof, top_k=10_000, n_iters=2)
         msda = {name: sum(ms for k, ms in top.items() if name in k)
                 for name in ("msda_forward", "msda_backward")}
@@ -2002,7 +2055,7 @@ def phase_profile_labels(work, card, real_root, steps=4):
     check("profile trace written to" in out, "no profile summary printed")
     summary = [ln for ln in out.splitlines() if " ms/step  " in ln]
     spans = host_spans(prof, n_iters=2)
-    check(spans.get("match_layers", 0) > 0, f"host spans {spans}")
+    check(spans.get("train.replay", 0) > 0, f"host spans {spans}")
     trace_mb = sum(os.path.getsize(os.path.join(prof, f))
                    for f in os.listdir(prof)) / 1e6
     device_total = sum(summarize_trace(prof, top_k=10_000,
@@ -2013,8 +2066,8 @@ def phase_profile_labels(work, card, real_root, steps=4):
         f"{steps} steps, window of 2 from step 2 (run {attempt + 1}); trace"
         f" {trace_mb:.1f} MB; per step: device {device_total:.2f} ms, "
         f"msda_forward {msda['msda_forward']:.3f} ms, msda_backward "
-        f"{msda['msda_backward']:.3f} ms, host span match_layers "
-        f"{spans['match_layers']:.2f} ms; profiled steps' host time "
+        f"{msda['msda_backward']:.3f} ms, host span train.replay "
+        f"{spans['train.replay']:.2f} ms; profiled steps' host time "
         f"{step_ms:.2f} ms (median); launches {launches}; the summary "
         f"printed:")
     for ln in summary:
@@ -2045,8 +2098,8 @@ def phase_profile_labels(work, card, real_root, steps=4):
     log(f"dump_labels on the PoseTrack18-format val split: {len(gt)} "
         f"entries for {n_val} samples, {len(renders)} renders, "
         f"{dump_s:.1f} s; {'; '.join(stat_lines)}")
-    return dict(launches=launches, msda_ms=msda, match_layers_ms=spans[
-        "match_layers"], device_ms=device_total, trace_mb=trace_mb,
+    return dict(launches=launches, msda_ms=msda, replay_ms=spans[
+        "train.replay"], device_ms=device_total, trace_mb=trace_mb,
         summary=summary, dump_entries=len(gt), renders=len(renders))
 
 
@@ -2203,26 +2256,34 @@ def phase_train(work, steps=8):
         "--synthetic_distinct", "2", "--epochs", "1",
         "--steps_per_epoch", str(steps), "--output_dir", out_dir,
         "--device", "cuda"])
-    launches = counts()
+    launches, graph = counts(), graph_counts()
     # ----------------------------------------------------------------------
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     hist = res["history"]
     n_eval = res["eval"]["_batches"]
     per_layer_pass = cfg.enc_layers + cfg.dec_layers
     check(len(hist) == steps, f"{len(hist)} train steps, expected {steps}")
-    # counted in this run: backward launches per step, forward launches
-    # per forward pass (a train step or an eval batch)
-    per_step = launches["msda_backward"] / steps
-    per_forward = launches["msda_forward"] / (steps + n_eval)
+    # one card, one batch shape: the first step eager, the second
+    # captured, each step from the second a replay
+    check(graph == {"captures": 1, "replays": steps - 1},
+          f"the train steps' CUDA graph: {graph} in {steps} steps, "
+          f"expected one capture and {steps - 1} replays")
+    # counted in this run, over the steps that called the kernels'
+    # wrappers (the eager step and the capture): backward launches per
+    # step, forward launches per forward pass (a train step or an eval
+    # batch)
+    called = wrapper_steps(steps, graph)
+    per_step = launches["msda_backward"] / called
+    per_forward = launches["msda_forward"] / (called + n_eval)
     check(per_step == per_layer_pass,
           f"msda_backward launched {launches['msda_backward']} times in "
-          f"{steps} steps, expected {per_layer_pass} per step")
+          f"{called} steps, expected {per_layer_pass} per step")
     check(per_forward == per_layer_pass,
           f"msda_forward launched {launches['msda_forward']} times in "
-          f"{steps} steps and {n_eval} eval batches, expected "
+          f"{called} steps and {n_eval} eval batches, expected "
           f"{per_layer_pass} per step and per eval batch")
-    check(launches["lsa_rows"] == steps + n_eval,
-          f"lsa_rows launched {launches['lsa_rows']} times in {steps} "
+    check(launches["lsa_rows"] == called + n_eval,
+          f"lsa_rows launched {launches['lsa_rows']} times in {called} "
           f"steps and {n_eval} eval batches, expected one per step and per "
           f"eval batch")
     losses = [h["loss_total"] for h in hist]
@@ -2242,7 +2303,9 @@ def phase_train(work, steps=8):
     period_ms = statistics.median(h["seconds"] + h["data_seconds"]
                                   for h in hist[2:]) * 1e3
     log(f"training path: canonical_t4_f2 600x800 enc6/dec6 batch 2 bf16 "
-        f"mixed precision, {steps} steps + {n_eval} eval batches; "
+        f"mixed precision, {steps} steps + {n_eval} eval batches, the "
+        f"step a CUDA graph ({graph}); by the wrappers of the {called} "
+        f"steps that called them (eager, capture) and the eval batches: "
         f"msda_forward {launches['msda_forward']} launches ({per_forward:g}"
         f" per step and per eval batch), msda_backward "
         f"{launches['msda_backward']} ({per_step:g} per step), lsa_rows "
@@ -2256,7 +2319,7 @@ def phase_train(work, steps=8):
         f"test_loss_total {logged['test_loss_total']:.4f} "
         f"(cuDNN TF32 on, matmul TF32 off)")
     return dict(steps=steps, eval_batches=n_eval, launches=launches,
-                checkpoint=res["checkpoint"],
+                graph=graph, checkpoint=res["checkpoint"],
                 per_step=per_step, per_forward=per_forward, step_ms=step_ms,
                 period_ms=period_ms, samples_per_s=2e3 / period_ms,
                 peak_gb=peak_gb, losses=losses,
@@ -2398,6 +2461,7 @@ def _accuracy_leg(work, name, preset, n_layers, train_argv, eval_argv,
     torch.cuda.reset_peak_memory_stats()
     train_dir = os.path.join(work, f"{name}_train")
     res, train_n = _accuracy_cli(train_cli, base + train_argv, train_dir)
+    graph = graph_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     trained_res, trained_n = _accuracy_cli(
         eval_cli, base + eval_argv + ["--resume", res["checkpoint"]],
@@ -2417,13 +2481,17 @@ def _accuracy_leg(work, name, preset, n_layers, train_argv, eval_argv,
     check(len(hist) == updates, f"{name}: {len(hist)} updates, expected "
           f"{updates}")
     n_eval = res["eval"]["_batches"] if res["eval"] else 0
-    check(train_n == {"msda_forward": n_layers * (updates + n_eval),
-                      "msda_backward": n_layers * updates,
-                      "lsa_rows": updates + n_eval},
-          f"{name}: cli.train launched {train_n} in {updates} updates and "
-          f"{n_eval} eval batches, expected {n_layers} of each per update "
-          f"and {n_layers} msda_forward per eval batch, one lsa_rows per "
-          f"update and eval batch")
+    # the updates that called the kernels' wrappers: the eager ones and
+    # the capture (a replay calls none)
+    called = wrapper_steps(updates, graph)
+    check(train_n == {"msda_forward": n_layers * (called + n_eval),
+                      "msda_backward": n_layers * called,
+                      "lsa_rows": called + n_eval},
+          f"{name}: cli.train launched {train_n} in {called} updates that "
+          f"called the wrappers (of {updates}, {graph}) and {n_eval} eval "
+          f"batches, expected {n_layers} of each per update and {n_layers} "
+          f"msda_forward per eval batch, one lsa_rows per update and eval "
+          f"batch")
     for what, r, n in evals:
         check(n == {"msda_forward": n_layers * r["batches"],
                     "msda_backward": 0, "lsa_rows": r["batches"]},
@@ -2451,6 +2519,7 @@ def _accuracy_leg(work, name, preset, n_layers, train_argv, eval_argv,
                                     for h in hist[2:]) * 1e3,
         launches={"train": train_n,
                   **{f"{what}_eval": n for what, _, n in evals}},
+        graph=graph,
         eval_batches={"train": n_eval,
                       **{what: r["batches"] for what, r, _ in evals}},
         midway=midway, jax_bars=jax_accuracy_bars(stats, floor))
@@ -2700,17 +2769,22 @@ def phase_train_real(work, card, steps=8, host_steps=3):
         "--posetrack_dir", root, "--device_preprocess", "--epochs", "1",
         "--steps_per_epoch", str(steps), "--output_dir", out_dev,
         "--device", "cuda"])
-    train_launches = counts()
+    train_launches, graph = counts(), graph_counts()
     # ----------------------------------------------------------------------
     hist = res["history"]
     n_eval = res["eval"]["_batches"]
     check(len(hist) == steps, f"{len(hist)} train steps, expected {steps}")
-    check(train_launches["msda_backward"] == per_pass * steps,
+    # the raw frames' padded size varies with the batch's videos: batches
+    # of the graph's size replay it, the others run eagerly; the wrappers
+    # count the eager steps and the capture
+    called = wrapper_steps(steps, graph)
+    check(train_launches["msda_backward"] == per_pass * called,
           f"msda_backward launched {train_launches['msda_backward']} times "
-          f"in {steps} steps from raw frames, expected {per_pass} per step")
-    check(train_launches["msda_forward"] == per_pass * (steps + n_eval)
-          and train_launches["lsa_rows"] == steps + n_eval,
-          f"launches {train_launches} in {steps} steps and {n_eval} eval "
+          f"in {called} steps from raw frames that called it ({graph}), "
+          f"expected {per_pass} per step")
+    check(train_launches["msda_forward"] == per_pass * (called + n_eval)
+          and train_launches["lsa_rows"] == called + n_eval,
+          f"launches {train_launches} in {called} steps and {n_eval} eval "
           f"batches, expected {per_pass} msda_forward and one lsa_rows per "
           f"step and per eval batch")
     losses = [h["loss_total"] for h in hist]
@@ -2728,14 +2802,21 @@ def phase_train_real(work, card, steps=8, host_steps=3):
     state = create_train_state(cfg, model)
     crit, gen = SetCriterion(cfg), torch.Generator().manual_seed(0)
     bd = breakdown(lambda: train_step(state, crit, dev, gen), top=6,
-                   need=("msda_forward", "msda_backward"))
+                   need=("msda_forward", "msda_backward", "lsa_rows"))
+    check(state.graph is not None and state.graph.graph is not None
+          and bd["launches"] == {"msda_forward": per_pass,
+                                 "msda_backward": per_pass, "lsa_rows": 1},
+          f"the profiled step from raw frames, a replay, ran "
+          f"{bd['launches']}")
     del model, state
     torch.cuda.empty_cache()
     log(f"training from PoseTrack18-format files with --device_preprocess "
         f"(canonical_t4_f2 b2 bf16, {card}): {steps} steps + {n_eval} eval "
-        f"batches; msda_forward {train_launches['msda_forward']} launches, "
-        f"msda_backward {train_launches['msda_backward']} ({per_pass} per "
-        f"step); step {step_ms:.2f} ms, waiting for the batch {wait_ms:.2f}"
+        f"batches, the step a CUDA graph ({graph}); by the wrappers of the "
+        f"{called} steps that called them: msda_forward "
+        f"{train_launches['msda_forward']} launches, msda_backward "
+        f"{train_launches['msda_backward']} ({per_pass} per step); the "
+        f"profiled replay's kernels {bd['launches']}; step {step_ms:.2f} ms, waiting for the batch {wait_ms:.2f}"
         f" ms, period {period_ms:.2f} ms, {2e3 / period_ms:.3f} samples/s "
         f"(median, first two steps excluded); losses "
         f"{[round(x, 4) for x in losses]}; one profiled step from raw "
@@ -2814,7 +2895,8 @@ def phase_train_real(work, card, steps=8, host_steps=3):
         f"(posetrack_ap_ap {stats.get('posetrack_ap_ap')})")
     del dev
     torch.cuda.empty_cache()
-    return dict(train_launches=train_launches, eval_launches=eval_launches,
+    return dict(train_launches=train_launches, train_graph=graph,
+                eval_launches=eval_launches,
                 steps=steps, eval_batches=n_eval, warp_err=warp_err,
                 warp_ms=warp_ms, warp_device_ms=warp_device_ms,
                 step_ms=step_ms, period_ms=period_ms, wait_ms=wait_ms,
@@ -3101,9 +3183,18 @@ def phase_train_agreement(cfg=None, name="canonical_t4_f2", tol_loss=1e-4,
     torch.backends.cudnn.allow_tf32 = True
     state = create_train_state(cfg, model)
     gen = torch.Generator().manual_seed(0)
+    # the step as a CUDA graph: the two warm-up calls run it eagerly and
+    # capture it, the timed and the profiled calls replay it
     bd = breakdown(lambda: train_step(state, crit, batch, gen), top=10,
-                   need=("msda_forward", "msda_backward"))
-    log(f"one canonical_t4_f2 b2 bf16 train step (cuDNN TF32 on): wall "
+                   need=("msda_forward", "msda_backward", "lsa_rows"))
+    check(state.graph is not None and state.graph.graph is not None
+          and bd["launches"] == {"msda_forward": n_layers,
+                                 "msda_backward": n_layers, "lsa_rows": 1},
+          f"the profiled train step, a replay, ran {bd['launches']}, "
+          f"expected {n_layers} of each MSDA kernel and one lsa_rows")
+    log(f"one canonical_t4_f2 b2 bf16 train step, a CUDA graph's replay "
+        f"(cuDNN TF32 on; its kernels by the profiler {bd['launches']}): "
+        f"wall "
         f"{bd['wall_ms']:.2f} ms (CUDA events), device kernels "
         f"{bd['device_ms']:.2f} ms (torch.profiler), busy share "
         f"{bd['busy_share']:.3f}, msda_forward {bd['msda_ms']:.3f} ms, "
@@ -3321,7 +3412,10 @@ def deform_f32_step(card, tol_floor=1e-2):
     (``||g - g_plain|| / ||g_plain||`` over all tensors) within twice the
     reordered step's distance or ``tol_floor`` of their size, the same
     matching. Then the update step's ms (``train_step``, CUDA events) under
-    "float32" and "auto" in turns, with its launches by value dtype."""
+    "float32" and "auto" in turns, a CUDA graph's replays (the eager first
+    step and the capture left out of the timing): the wrappers' launches
+    by value dtype in the eager step and the capture, and each setting's
+    replay's kernels by value dtype (torch.profiler)."""
     import torch
 
     from snipper_tpu_torch.config import Config
@@ -3384,20 +3478,36 @@ def deform_f32_step(card, tol_floor=1e-2):
     auto = perturbed_model(base, seed=3)
     states["auto"] = create_train_state(base, auto)
     gen = torch.Generator().manual_seed(0)
-    times, step_counts = {"auto": [], "float32": []}, {}
+    times, step_counts, replayed = {"auto": [], "float32": []}, {}, {}
     for order in (("float32", "auto"), ("auto", "float32")):
         for dd in order:
             zero_counts()
             times[dd].append(time_ms(
                 lambda: train_step(states[dd], crit, batch, gen), reps=5,
-                warmup=1))
-            step_counts.setdefault(dd, []).append(dtype_counts())
+                warmup=2))
+            step_counts.setdefault(dd, []).append(
+                (dtype_counts(), graph_counts()))
+    for dd, state in states.items():
+        replayed[dd] = replay_launches(
+            lambda: train_step(state, crit, batch, gen))
     for dd, cs in step_counts.items():
         kind = "f32" if dd == "float32" else "bf16"
-        check(all(c["msda_forward"][kind] == c["msda_backward"][kind] > 0
-                  and sum(c["msda_forward"].values())
-                  == c["msda_forward"][kind] for c in cs),
-              f"timed {dd} steps launched by value dtype {cs}")
+        other = "bf16" if kind == "f32" else "f32"
+        # the first turn: the eager step and the capture call the
+        # wrappers, its other 6 steps replay; the second turn replays
+        want = [{k: {kind: 2 * n_layers, other: 0}
+                 for k in ("msda_forward", "msda_backward")},
+                {k: {kind: 0, other: 0}
+                 for k in ("msda_forward", "msda_backward")}]
+        check([c for c, _ in cs] == want
+              and [g for _, g in cs] == [{"captures": 1, "replays": 6},
+                                         {"captures": 0, "replays": 7}],
+              f"timed {dd} steps: the wrappers' launches by value dtype "
+              f"and the graph's counts {cs}")
+        check(replayed[dd] == {"msda_forward": {kind: n_layers, other: 0},
+                               "msda_backward": {kind: n_layers, other: 0},
+                               "lsa_rows": 1},
+              f"a replayed {dd} step ran {replayed[dd]}")
     ms = {dd: statistics.median(t) for dd, t in times.items()}
     log(f"canonical_t4_f2 b2 bf16 mixed-precision step at "
         f"enc{base.enc_layers}/dec{base.dec_layers} with deform_dtype "
@@ -3406,14 +3516,15 @@ def deform_f32_step(card, tol_floor=1e-2):
         f"{by_dtype}; loss {loss_k:.6f} vs {loss_p:.6f} (reordered "
         f"{loss_r:.6f}); gradients {gap_k:.3e} of their norm from the plain"
         f" step's (reordered {gap_r:.3e}; tol {grad_tol:.3e}); the same "
-        f"matching; a train step {ms['float32']:.2f} ms with float32, "
-        f"{ms['auto']:.2f} with auto (CUDA events, {times}) ({card})")
+        f"matching; a train step, a CUDA graph's replay, {ms['float32']:.2f}"
+        f" ms with float32, {ms['auto']:.2f} with auto (CUDA events, "
+        f"{times}), its kernels by the profiler {replayed} ({card})")
     del model, auto, states, batch
     torch.cuda.empty_cache()
     return dict(launches=launches, launches_by_dtype=by_dtype,
                 loss_kernel=loss_k, loss_plain=loss_p, loss_reordered=loss_r,
                 grad_gap=gap_k, grad_gap_reordered=gap_r, step_ms=ms,
-                times=times)
+                times=times, replay_launches=replayed)
 
 
 def phase_presets(card):
@@ -3523,11 +3634,14 @@ def phase_matching(card):
     (torch.profiler) beside its bound, the plain version on the card and
     the scipy route the port took before (the costs copied to the host, 12
     solves, the indices copied back). That step (forward, criterion,
-    backward, clip and AdamW) runs under
+    backward, clip and AdamW), run eagerly, runs under
     ``torch.cuda.set_sync_debug_mode("error")``, its counts at 0 just
     before and read just after (one ``lsa_rows`` launch); its loss is read
-    after. Should a synchronising call raise, the step runs again in
-    ``"warn"`` mode and every synchronising call's stack is logged."""
+    after. Then the step as a CUDA graph: captured (which synchronises),
+    then one replay under the same check, its wrappers' counts at 0 and
+    one replay counted. Should a synchronising call raise, the step runs
+    again in ``"warn"`` mode and every synchronising call's stack is
+    logged."""
     import traceback
     import warnings
 
@@ -3565,6 +3679,9 @@ def phase_matching(card):
     cfg = Config.canonical_t4_f2()
     model = perturbed_model(cfg, seed=4).train()
     state = create_train_state(cfg, model)
+    # eager steps first: the step's second call would capture it as a
+    # CUDA graph, which synchronises the device before it starts
+    graphed, state.graphed = state.graphed, False
     crit = SetCriterion(cfg)
     ds = SyntheticDataset(cfg, n_samples=2, seed=1)
     batch = batch_to_device(stack_batch([ds[0], ds[1]]),
@@ -3588,16 +3705,21 @@ def phase_matching(card):
             torch.cuda.set_sync_debug_mode("default")
             matcher.lsa_rows = solve
 
-    # ---- the step under the sync check, with every count at 0 ----------
-    zero_counts()
-    try:
-        metrics = sync_step("error")
-        raised = None
-    except RuntimeError as e:
-        raised = e
-    launches = counts()
-    # ----------------------------------------------------------------------
-    if raised is not None:
+    def sync_checked(what):
+        """``sync_step("error")`` with every count at 0: its metrics and
+        counts; should it raise, every synchronising call's stack is
+        logged and the check fails."""
+        # ---- the step under the sync check, with every count at 0 ------
+        zero_counts()
+        try:
+            metrics = sync_step("error")
+            raised = None
+        except RuntimeError as e:
+            raised = e
+        launches, graph = counts(), graph_counts()
+        # ------------------------------------------------------------------
+        if raised is None:
+            return metrics, launches, graph
         sites = []
 
         def keep(message, category, filename, lineno, file=None,
@@ -3611,10 +3733,12 @@ def phase_matching(card):
             sync_step("warn")
             torch.cuda.synchronize()
         for site in sites:
-            log(f"synchronising call in the train step: {site}")
-        check(False, f"the train step synchronised under "
+            log(f"synchronising call in the {what}: {site}")
+        check(False, f"the {what} synchronised under "
               f"set_sync_debug_mode('error'): {raised}; {len(sites)} "
               f"synchronising calls logged above")
+
+    metrics, launches, _ = sync_checked("eager train step")
     loss = metrics["loss_total"].item()
     check(math.isfinite(loss), f"the sync-checked step's loss {loss}")
     check(launches == {"msda_forward": cfg.enc_layers + cfg.dec_layers,
@@ -3629,6 +3753,23 @@ def phase_matching(card):
           f"lsa_rows kernel vs plain on the step's {P} problems: "
           f"{int((got.cpu() != want).sum())} slots differ")
     n_steps = int(steps.sum())
+
+    # the step as a CUDA graph: its first graphable call runs eagerly, its
+    # second captures it (which synchronises); then one replay under the
+    # sync check, which calls no kernel's wrapper
+    state.graphed = graphed
+    train_step(state, crit, batch, gen)
+    train_step(state, crit, batch, gen)
+    torch.cuda.synchronize()
+    replayed, replay_counts, replay_graph = sync_checked(
+        "replayed train step")
+    replay_loss = replayed["loss_total"].item()
+    check(graphed and math.isfinite(replay_loss)
+          and replay_graph == {"captures": 0, "replays": 1}
+          and replay_counts == {"msda_forward": 0, "msda_backward": 0,
+                                "lsa_rows": 0},
+          f"the sync-checked replay: loss {replay_loss}, graph "
+          f"{replay_graph}, wrappers' launches {replay_counts}")
 
     # times: the kernel per call and alone, the plain version on the card,
     # the scipy route of the parent (host copy, P solves, copy back)
@@ -3664,7 +3805,9 @@ def phase_matching(card):
         f"the host, {P} solves, copy back) {scipy_ms:.4f} ms. The step "
         f"(forward, criterion, backward, clip, AdamW) ran under "
         f"set_sync_debug_mode('error') without a synchronising call, "
-        f"launches {launches}, loss {loss:.4f} read after it")
+        f"launches {launches}, loss {loss:.4f} read after it; so did a "
+        f"replay of it as a CUDA graph ({replay_graph}), loss "
+        f"{replay_loss:.4f}")
     del model, state, batch, caught, cost
     torch.cuda.empty_cache()
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
@@ -3853,10 +3996,10 @@ def torchrun_cli(mode, out_json, argv):
     # ---- the CLI, with every kernel's count at 0 -------------------------
     zero_counts()
     res = cli_main(argv)
-    launches = counts()
+    launches, graph = counts(), graph_counts()
     # ----------------------------------------------------------------------
     if mode == "train":
-        keep = {"checkpoint": res["checkpoint"],
+        keep = {"checkpoint": res["checkpoint"], "graph": graph,
                 "losses": [h["loss_total"] for h in res["history"]],
                 "period_s": [h["seconds"] + h["data_seconds"]
                              for h in res["history"]]}
@@ -3885,10 +4028,10 @@ def bench_child(out_json):
         rc = 0
     except SystemExit as e:
         rc = e.code if isinstance(e.code, int) else 1
-    launches = counts()
+    launches, graph = counts(), graph_counts()
     # ----------------------------------------------------------------------
     with open(out_json, "w") as f:
-        json.dump({"launches": launches}, f)
+        json.dump({"launches": launches, "graph": graph}, f)
     return rc
 
 
@@ -4028,7 +4171,8 @@ def phase_bench(work, card):
     check(all(isinstance(v, float) and v > 0 for v in legs),
           f"a leg of the bench is not a positive number: {legs}")
     with open(out_json) as f:
-        launches = json.load(f)["launches"]
+        rec_counts = json.load(f)
+    launches, graph = rec_counts["launches"], rec_counts["graph"]
 
     def layers(preset):
         cfg = getattr(Config, preset)()
@@ -4040,13 +4184,20 @@ def phase_bench(work, card):
     # p2,r480 keeps canonical_t4's layers
     want_fwd = (layers("canonical_t4") * (calls(bench.VALUE_K)
                                           + calls(bench.FAST_K))
-                + layers("canonical_t4_f2") * calls(bench.TRAIN_K)
                 + layers("light_t1") * calls(bench.CONFIG_K))
-    want_bwd = layers("canonical_t4_f2") * calls(bench.TRAIN_K)
-    check(launches == {"msda_forward": want_fwd, "msda_backward": want_bwd,
-                       "lsa_rows": calls(bench.TRAIN_K)},
+    # the train leg: two warm steps (eager, capture of the step's CUDA
+    # graph), then the passes' replays, which call no wrapper
+    want_train = wrapper_steps(2 + bench.PASSES * bench.TRAIN_K, graph)
+    want_fwd += layers("canonical_t4_f2") * want_train
+    want_bwd = layers("canonical_t4_f2") * want_train
+    check(graph == {"captures": 1,
+                    "replays": 1 + bench.PASSES * bench.TRAIN_K}
+          and launches == {"msda_forward": want_fwd,
+                           "msda_backward": want_bwd,
+                           "lsa_rows": want_train},
           f"bench launches {launches}, expected {want_fwd} + {want_bwd} + "
-          f"{calls(bench.TRAIN_K)} (one lsa_rows per train step)")
+          f"{want_train} (one lsa_rows per train step that called the "
+          f"wrappers, {graph})")
 
     # the bench's forward, kernel against plain MSDA
     set_tf32(False)
@@ -4270,9 +4421,14 @@ def phase_multi_gpu(work, card):
         os.path.join(work, "torchrun_train"), "--device", "cuda"])
     check("process group: nccl, world 1" in out,
           "torchrun cli.train: no NCCL process group line")
-    check(tr["launches"] == {"msda_forward": 3 * per_step,
-                             "msda_backward": 3 * per_step, "lsa_rows": 3},
-          f"torchrun cli.train launches {tr['launches']} in 3 steps")
+    # a world of 1: the step a CUDA graph, eager, captured, replayed
+    called = wrapper_steps(3, tr["graph"])
+    check(tr["graph"] == {"captures": 1, "replays": 2}
+          and tr["launches"] == {"msda_forward": called * per_step,
+                                 "msda_backward": called * per_step,
+                                 "lsa_rows": called},
+          f"torchrun cli.train launches {tr['launches']} in 3 steps, "
+          f"{tr['graph']}")
     check(all(math.isfinite(x) for x in tr["losses"])
           and os.path.exists(tr["checkpoint"]),
           f"torchrun cli.train: losses {tr['losses']}, checkpoint "

@@ -27,8 +27,9 @@ Prints ONE JSON line with every key of the root bench's record
 - ``train_step_ms_T4F2_bf16mp_b2``: canonical_t4_f2 seeded with 1,
   ``train_step(mixed_precision=True)`` (the forward on bf16 copies of
   the f32 masters, made in each step as JAX's loss makes them) on a
-  synthetic batch of 2 already on the device; one step apart, then two
-  passes of 4 steps, each ending in the read of ``loss_total``; the best
+  synthetic batch of 2 already on the device; two steps apart (on one
+  card the second captures the step as a CUDA graph, ``train/step.py``),
+  then two passes of 4 steps, each ending in the read of ``loss_total``; the best
   pass in ms, both in ``train_step_passes_ms``.
 - ``configs_snippets_per_sec``: light_t1 at batch 4, bf16 weights and
   input as the value leg; with ``SNIPPER_BENCH_CONFIGS=all`` the five
@@ -250,8 +251,9 @@ def train_leg(device) -> list:
     # (loader.device_prefetch), so the timing leaves it out
     batch = batch_to_device(next(iter(loader)), device)
     gen = torch.Generator().manual_seed(2)
-    float(train_step(state, crit, batch, gen,
-                     mixed_precision=True)["loss_total"])
+    for _ in range(2):
+        float(train_step(state, crit, batch, gen,
+                         mixed_precision=True)["loss_total"])
     passes = []
     for _ in range(PASSES):
         t0 = time.perf_counter()

@@ -222,8 +222,10 @@ def cmd_forward(args) -> int:
 
 
 def cmd_train(args) -> int:
-    """Train-step timing over impl x mixed precision: the first step apart,
-    then K steps; returns the number of runs that failed."""
+    """Train-step timing over impl x mixed precision: the first two steps
+    apart (on one card the second captures the step as a CUDA graph,
+    ``train/step.py``), then K steps; returns the number of runs that
+    failed."""
     from snipper_tpu_torch.data.loader import DataLoader
     from snipper_tpu_torch.data.synthetic import SyntheticDataset
     from snipper_tpu_torch.losses.criterion import SetCriterion
@@ -253,6 +255,7 @@ def cmd_train(args) -> int:
                 t0 = time.perf_counter()
                 m = train_step(state, crit, batch, gen, mixed_precision=mp)
                 loss0 = float(m["loss_total"])
+                train_step(state, crit, batch, gen, mixed_precision=mp)
                 sync()
                 compile_s = time.perf_counter() - t0
 

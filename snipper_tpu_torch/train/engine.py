@@ -102,9 +102,14 @@ def train_one_epoch(state, criterion, loader, epoch: int,
     (from step 2, after the first step and one warm step; JAX
     ``train/engine.py:74-148``) into that directory and print the top
     device kernels by self time per step and the host spans: each step's
-    wait for its batch (``train.wait``), ``train_step`` (``train.step``,
-    with ``train.backward`` and ``train.update`` inside) and the read of
-    its scalars (``train.readback``)."""
+    wait for its batch (``train.wait``), ``train_step`` (``train.step``)
+    and the read of its scalars (``train.readback``). Inside
+    ``train.step``: on one card, where the step runs as a CUDA graph
+    (``train/step.py``), the copy of the batch into the graph's inputs
+    (``train.stage``) and the replay (``train.replay``), with the capture
+    (``train.capture``) at the second step of the graph's batch signature;
+    elsewhere, at the first step and at a batch of another signature,
+    ``train.backward`` and ``train.update``."""
     logger = MetricLogger()
     history: List[Dict[str, float]] = []
     profiler = contextlib.ExitStack()

@@ -20,6 +20,15 @@ moments and accumulated gradients are this rank's pieces as well:
 ``state_dict`` gathers them into the full tensors (a collective over the
 model group) and ``load_state_dict`` cuts a full one, so that a checkpoint
 is the same file at any ``tp_size``.
+
+On one card, in one process and without accumulation the train step runs
+as a CUDA graph (``train/step.py::StepGraph``), kept in ``state.graph``.
+AdamW is then ``capturable``: its step counts live on the card and each
+group's rate is a tensor on the card, written before each step. A
+checkpoint of a capturable AdamW holds the host form all the same (rates
+as floats, step counts on the host, ``capturable`` off), so that a file is
+the same whatever wrote it and loads wherever it is read; a capturable
+AdamW that loads one is made capturable again.
 """
 
 from __future__ import annotations
@@ -67,7 +76,11 @@ class TrainState:
     ``step``; ``updates`` counts optimizer updates, which drive the
     StepLR schedules. ``accum`` holds the running mean of the current
     accumulation window's gradients (``grad_accum_steps > 1``). ``mesh``
-    is the ``parallel.mesh.Mesh`` the step runs on (None: one process)."""
+    is the ``parallel.mesh.Mesh`` the step runs on (None: one process).
+    ``graphed``: the step runs as a CUDA graph where it can (set on one
+    card, in one process and without accumulation; cleared, every step
+    runs eagerly); ``graph`` is that graph (``train/step.py::StepGraph``),
+    once the first graphable step has given it its batch signature."""
     model: torch.nn.Module
     optimizer: torch.optim.AdamW
     params: List[torch.nn.Parameter]
@@ -77,6 +90,8 @@ class TrainState:
     updates: int = 0
     accum: Optional[List[torch.Tensor]] = None
     mesh: Optional[Any] = None
+    graphed: bool = False
+    graph: Optional[Any] = dataclasses.field(default=None, repr=False)
 
     def _per_param(self, fn, tensors):
         """``fn(tensor, tp_spec)`` on each parameter's tensor of a cut
@@ -103,6 +118,8 @@ class TrainState:
 
             adamw = self._moments(adamw, full)
             accum = None if accum is None else self._per_param(full, accum)
+        if _capturable(self.optimizer):
+            adamw = _host_form(adamw)
         return {"adamw": adamw, "updates": self.updates,
                 "accum": None if accum is None else [a.cpu() for a in accum]}
 
@@ -114,11 +131,46 @@ class TrainState:
 
             adamw = self._moments(adamw, piece)
             accum = None if accum is None else self._per_param(piece, accum)
+        capturable = _capturable(self.optimizer)
         self.optimizer.load_state_dict(adamw)
+        if capturable:
+            make_capturable(self.optimizer)
+        # the graph captured the moments that were replaced
+        self.graph = None
         self.updates = int(opt_state["updates"])
         dev = self.params[0].device
         self.accum = None if accum is None else [a.to(dev) for a in accum]
         self.step = int(step)
+
+
+def _capturable(optimizer: torch.optim.AdamW) -> bool:
+    return any(g.get("capturable") for g in optimizer.param_groups)
+
+
+def _host_form(adamw: Dict) -> Dict:
+    """A capturable AdamW's ``state_dict`` in the form a non-capturable
+    one writes: rates as floats, step counts on the host, ``capturable``
+    off."""
+    groups = [dict(g, lr=float(g["lr"]), capturable=False)
+              for g in adamw["param_groups"]]
+    state = {i: dict(s, step=s["step"].cpu()) if "step" in s else s
+             for i, s in adamw["state"].items()}
+    return dict(adamw, param_groups=groups, state=state)
+
+
+def make_capturable(optimizer: torch.optim.AdamW):
+    """Make AdamW safe to capture in a CUDA graph on its parameters' card:
+    each group ``capturable``, its rate a tensor there (written in place
+    before each step, ``train/step.py::write_rates``), and the step counts
+    of its state there in f32, where a capturable AdamW keeps them."""
+    for group in optimizer.param_groups:
+        dev = group["params"][0].device
+        group["capturable"] = True
+        group["lr"] = torch.tensor(float(group["lr"]), device=dev)
+        for p in group["params"]:
+            s = optimizer.state.get(p)
+            if s and "step" in s:
+                s["step"] = s["step"].to(dev, torch.float32)
 
 
 def create_train_state(cfg: Config, model: torch.nn.Module,
@@ -127,7 +179,10 @@ def create_train_state(cfg: Config, model: torch.nn.Module,
     """Freeze the frozen set and build AdamW over the three trained
     groups. ``steps_per_epoch`` counts microbatches; the schedules step per
     optimizer update. ``mesh``: the mesh a sharded ``model`` was cut for
-    (``parallel.mesh.shard_model``)."""
+    (``parallel.mesh.shard_model``). On one card, without a mesh and
+    without accumulation, AdamW is made capturable and ``graphed`` is set:
+    the step runs as a CUDA graph. One card means one process: no mesh, or
+    a mesh of one rank."""
     accum = max(cfg.grad_accum_steps, 1)
     sched_steps = max(-(-steps_per_epoch // accum), 1)
     base_lr = {"backbone": cfg.lr_backbone,
@@ -144,5 +199,11 @@ def create_train_state(cfg: Config, model: torch.nn.Module,
         betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay)
     lr_fns = [step_lr(base_lr[k], cfg.lr_drop, sched_steps) for k in names]
     params = [p for k in names for p in groups[k]]
+    # a mesh of one rank (``cli.train`` in one process) issues no collective
+    one_rank = mesh is None or mesh.dp * mesh.tp == 1
+    graphed = one_rank and accum == 1 and params[0].is_cuda
+    if graphed:
+        make_capturable(optimizer)
     return TrainState(model=model, optimizer=optimizer, params=params,
-                      lr_fns=lr_fns, cfg=cfg, mesh=mesh)
+                      lr_fns=lr_fns, cfg=cfg, mesh=mesh,
+                      graphed=graphed)

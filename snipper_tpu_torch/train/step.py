@@ -27,6 +27,18 @@ the cut parameters' squares over the model group. The dropout seed folds
 in the data rank (equal on the ranks of a model group, which must draw
 alike), and the step's metrics are averaged over the data group, so that
 ``loss_total`` is the global batch's loss on every rank.
+
+On one card, in one process (no mesh, or a mesh of one rank) and without
+accumulation (``state.graphed``, ``train/state.py``) the step runs as a
+CUDA graph, which takes the host's launches off the step's path. The
+state's first step runs eagerly (AdamW's moments made, cuBLAS and cuDNN
+warm); the next of the same batch signature captures the step
+(:class:`StepGraph`) and replays it; every later one of that signature
+copies its batch into the graph's inputs and replays, and a batch of
+another signature runs eagerly. The eager and the captured step
+run one body, :func:`_step`, with the same dropout bits (the seed is set
+on the generators before the replay, which reads it there) and the same
+StepLR rates (written into AdamW's rate tensors before the step).
 """
 
 from __future__ import annotations
@@ -152,23 +164,38 @@ def train_step(state: TrainState, criterion: SetCriterion, batch: Dict,
     gradients, every loss term, ``sampling_overflow``), averaged over the
     data group; read them with one host copy. With accumulation over a
     data group, a microbatch's ``grad_norm`` is the mean of the ranks'
-    own norms (the average is taken at the window's end). The backward
-    and the update run in the host spans ``train.backward`` and
-    ``train.update``."""
-    model, cfg, mesh = state.model, state.cfg, state.mesh
-    model.train()
-    seed = dropout_seed(generator, mesh)
+    own norms (the average is taken at the window's end). Eagerly, the
+    backward and the update run in the host spans ``train.backward`` and
+    ``train.update``; as a graph, the capture runs in ``train.capture``,
+    the copy of the batch into the graph's inputs in ``train.stage`` and
+    the replay in ``train.replay``."""
+    state.model.train()
+    seed = dropout_seed(generator, state.mesh)
+    write_rates(state)
     dev = batch["targets"]["valid"].device
     with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
         torch.manual_seed(seed)
-        total, losses, out, _ = forward_loss(model, criterion, batch,
-                                             mixed_precision)
+        graph = _graph_for(state, criterion, batch, mixed_precision)
+        if graph is None:
+            return _step(state, criterion, batch, mixed_precision)
+        return graph.replay(state, batch)
+
+
+def _step(state: TrainState, criterion: SetCriterion, batch: Dict,
+          mixed_precision: bool) -> Dict[str, torch.Tensor]:
+    """The step's work, eager or captured: forward and criterion, the
+    backward, and at the end of an accumulation window the clip and the
+    update."""
+    cfg, mesh = state.cfg, state.mesh
+    total, losses, out, _ = forward_loss(state.model, criterion, batch,
+                                         mixed_precision)
     with record_function("train.backward"):
         grads = torch.autograd.grad(total, state.params)
     k = max(cfg.grad_accum_steps, 1)
     if k == 1:
         grads = average_gradients(grads, mesh)
     norm = global_norm(grads, state.params, mesh)
+    dev = batch["targets"]["valid"].device
     metrics = average_metrics(
         {"loss_total": total.detach(), "grad_norm": norm,
          **{name: v.detach() for name, v in losses.items()},
@@ -192,19 +219,114 @@ def train_step(state: TrainState, criterion: SetCriterion, batch: Dict,
     return metrics
 
 
+def write_rates(state: TrainState):
+    """Each AdamW group's StepLR rate for the next update, ``state.lr_fns``
+    at ``state.updates``: written into the group's rate tensor where AdamW
+    is capturable (a replay reads it there), else set as a float."""
+    for group, lr_fn in zip(state.optimizer.param_groups, state.lr_fns):
+        rate = lr_fn(state.updates)
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(rate)
+        else:
+            group["lr"] = rate
+
+
 def apply_update(state: TrainState, grads, norm: torch.Tensor):
     """Global-norm clip of ``grads`` (global norm ``norm``) at
     ``cfg.clip_max_norm`` by optax's formula, without a host read, then
-    one AdamW update at the StepLR rates."""
+    one AdamW update at the rates :func:`write_rates` set."""
     max_norm = state.cfg.clip_max_norm
     clipped = norm >= max_norm
     for p, g in zip(state.params, grads):
         p.grad = torch.where(clipped, g / norm * max_norm, g)
-    for group, lr_fn in zip(state.optimizer.param_groups, state.lr_fns):
-        group["lr"] = lr_fn(state.updates)
     state.optimizer.step()
     state.optimizer.zero_grad(set_to_none=True)
     state.updates += 1
+
+
+def _graph_for(state: TrainState, criterion: SetCriterion, batch: Dict,
+               mixed_precision: bool):
+    """The graph that runs this step, captured here at its signature's
+    second step; None where the step runs eagerly: ``state.graphed``
+    unset, a batch leaf not a card's tensor, the state's first graphable
+    step (whose signature the graph takes), or a batch of another
+    signature than the graph's. A state keeps one graph."""
+    if not state.graphed:
+        return None
+    leaves = _leaves(batch)
+    if not all(isinstance(t, torch.Tensor) and t.is_cuda for _, t in leaves):
+        return None
+    key = (id(criterion), mixed_precision,
+           tuple((k, t.shape, t.dtype, t.device) for k, t in leaves))
+    if state.graph is None:
+        state.graph = StepGraph(key, criterion)
+        return None
+    if state.graph.key != key:
+        return None
+    if state.graph.graph is None:
+        state.graph.capture(state, batch, mixed_precision)
+    return state.graph
+
+
+def _leaves(batch: Dict):
+    """``(name, value)`` of each step input and each target."""
+    return ([(k, v) for k, v in batch.items() if k != "targets"]
+            + [(("targets", k), v) for k, v in batch["targets"].items()])
+
+
+class StepGraph:
+    """One train step, :func:`_step`, captured as a CUDA graph for one
+    batch signature (``key``), on static inputs of that signature: the
+    weight casts, the forward, the criterion with the matching, the
+    backward, the clip and AdamW. The capture runs nothing: it leaves the
+    state's step and update counts as it found them, and each replay adds
+    one step and one update. A replay calls no kernel's wrapper, so the
+    kernels' launch counters count the capture's launches once and no
+    replay's; ``captures`` and ``replays`` count them in the process, as
+    those counters do launches. A replay's metrics are fresh tensors, one
+    copy of the graph's outputs."""
+
+    captures = 0
+    replays = 0
+
+    def __init__(self, key, criterion: SetCriterion):
+        self.key = key
+        self.criterion = criterion   # held, so that its id stays its own
+        self.graph = None
+
+    def capture(self, state: TrainState, batch: Dict,
+                mixed_precision: bool):
+        """Capture the step on static inputs shaped as ``batch``."""
+        self.inputs = {k: (torch.empty_like(v) if k != "targets" else
+                           {n: torch.empty_like(t) for n, t in v.items()})
+                       for k, v in batch.items()}
+        counts = (state.step, state.updates)
+        graph = torch.cuda.CUDAGraph()
+        # thread-local: the loader's thread pins memory meanwhile
+        with record_function("train.capture"), torch.cuda.graph(
+                graph, capture_error_mode="thread_local"):
+            metrics = _step(state, self.criterion, self.inputs,
+                            mixed_precision)
+            self.keys = list(metrics)
+            self.outputs = torch.stack([metrics[k].float()
+                                        for k in self.keys])
+        state.step, state.updates = counts
+        self.graph = graph
+        StepGraph.captures += 1
+
+    def replay(self, state: TrainState, batch: Dict
+               ) -> Dict[str, torch.Tensor]:
+        """Copy ``batch`` into the inputs and run the step once."""
+        with record_function("train.stage"):
+            for (_, dst), (_, src) in zip(_leaves(self.inputs),
+                                          _leaves(batch)):
+                dst.copy_(src)
+        with record_function("train.replay"):
+            self.graph.replay()
+        StepGraph.replays += 1
+        state.step += 1
+        state.updates += 1
+        return dict(zip(self.keys, self.outputs.clone().unbind()))
 
 
 @torch.no_grad()
