@@ -204,12 +204,13 @@ F32_FLOP_PER_S = 67e12
 TOL_F32 = 1e-5
 TOL_BF16_REL = 1e-2
 # msda_backward against the plain VJP, f32: each gradient within 1e-5 of
-# the largest of that gradient (at least 1). d_value is summed with f32
-# atomics in an order that changes from run to run, and d_loc carries the
-# level's width (up to 100) as a factor, so the bound is relative. With a
-# bf16 value, d_loc and d_attn are f32 sums of the same bf16 inputs (same
-# bound); the kernel's d_value is f32, the plain VJP's is rounded once to
-# bf16 (TOL_BF16_REL).
+# the largest of that gradient (at least 1). d_value's sums run in another
+# order than the plain VJP's (each row's hits in one fixed order, so the
+# same bits on every run), and d_loc carries the level's width (up to 100)
+# as a factor, so the bound is relative. With a bf16 value, d_loc and
+# d_attn are f32 sums of the same bf16 inputs (same bound); d_value is an
+# f32 sum rounded once to bf16 on both sides, in another order: one bf16
+# unit (BF16_UNIT) of the largest entry.
 TOL_BWD_REL = 1e-5
 # Full canonical_t4 forward, kernel vs plain MSDA on the card (TF32 off):
 # f32 sums in another order through 12 layers.
@@ -294,21 +295,26 @@ def wrapper_steps(steps, graph):
     return steps - graph["replays"] + graph["captures"]
 
 
+# The kernel that counts one call of each wrapper on the card: the
+# backward launches three kernels a call, counted by its taps kernel.
+CALL_KERNEL = {"msda_forward": "msda_forward_kernel",
+               "msda_backward": "msda_backward_taps_kernel",
+               "lsa_rows": "lsa_rows_kernel"}
+
+
 def replay_launches(fn):
     """The MSDA kernels (by the value's dtype) and the assignment kernels
     that one call of ``fn`` ran on the card, by torch.profiler's counts:
     what a train step that replays its CUDA graph launches."""
-    kernels = profiled_kernels(fn, need=("msda_forward_kernel",
-                                         "msda_backward_kernel",
-                                         "lsa_rows_kernel"))
+    kernels = profiled_kernels(fn, need=tuple(CALL_KERNEL.values()))
 
     def n(name):
         return sum(e.count for e in kernels if name in e.key)
 
-    return {f"msda_{k}": {"f32": n(f"msda_{k}_kernel<float"),
-                          "bf16": n(f"msda_{k}_kernel<__nv_bfloat16")}
-            for k in ("forward", "backward")} | {
-        "lsa_rows": n("lsa_rows_kernel")}
+    return {k: {"f32": n(f"{CALL_KERNEL[k]}<float"),
+                "bf16": n(f"{CALL_KERNEL[k]}<__nv_bfloat16")}
+            for k in ("msda_forward", "msda_backward")} | {
+        "lsa_rows": n(CALL_KERNEL["lsa_rows"])}
 
 
 def dtype_counts():
@@ -498,11 +504,11 @@ def msda_bound_ms(value, shapes, loc, attn, backward=False):
     operations (per tap and channel 4 corner and 1 attention multiply-adds,
     plus ~20 per tap for coordinates and weights) over the f32 rate.
     ``backward``: the VJP instead, which also reads grad_out [N, Lq, H*D]
-    once and writes d_value [N, S, H, D] (f32) whole, d_loc and d_attn
-    once, at per tap and channel 8 multiply-adds (the four corner dots
-    v_c.g, from which d_attn and d_loc are per-tap combinations, and the
-    four scatter products w_c*a*g; the atomic adds are memory traffic, in
-    the bytes), plus ~30 per tap. Returns (ms, "bytes" or "operations",
+    once and writes d_value [N, S, H, D] (in the value's type) whole,
+    d_loc and d_attn once, at per tap and channel 8 multiply-adds (the
+    four corner dots v_c.g, from which d_attn and d_loc are per-tap
+    combinations, and the four products w_c*a*g summed into the corner
+    rows), plus ~30 per tap. Returns (ms, "bytes" or "operations",
     bytes, ops)."""
     import torch
 
@@ -531,8 +537,9 @@ def msda_bound_ms(value, shapes, loc, attn, backward=False):
     taps = attn.numel()
     ops = taps * (10 * D + 20)
     if backward:
-        # + d_value (whole, f32), d_loc, d_attn written
-        nbytes += value.numel() * 4 + loc.numel() * 4 + attn.numel() * 4
+        # + d_value (whole), d_loc, d_attn written
+        nbytes += (value.numel() * esize + loc.numel() * 4
+                   + attn.numel() * 4)
         ops = taps * (16 * D + 30)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_FLOP_PER_S * 1e3
@@ -651,25 +658,29 @@ def _grad_errors(got, want, bf16=False):
     out = []
     for i, (g, w) in enumerate(zip(got, want)):
         scale = max(1.0, w.float().abs().max().item())
-        tol = (TOL_BF16_REL if bf16 and i == 0 else TOL_BWD_REL) * scale
+        tol = (BF16_UNIT if bf16 and i == 0 else TOL_BWD_REL) * scale
         out.append(((g.float() - w.float()).abs().max().item(), tol))
     return out
 
 
 def phase_backward():
     """msda_backward vs the plain VJP at the tiny and the train shapes (8
-    heads, and the 4 of a tensor-parallel rank), f32 and bf16 value;
-    times of the kernel, of the plain backward (autograd through
-    grid_sample, its graph built once) and, at the train shapes in f32,
-    of the backward of one ``embedding_bag`` call (its d_value and d_attn
-    checked against the plain VJP's)."""
+    heads, and the 4 of a tensor-parallel rank), f32 and bf16 value, and
+    at a tiny shape whose first level has too many cells for the index
+    kernel's shared counters (they live in global memory there); d_value
+    of a second call bit-equal to the first's; times of the
+    kernels, of the plain backward (autograd through grid_sample, its
+    graph built once) and, at the train shapes in f32, of the backward of
+    one ``embedding_bag`` call (its d_value and d_attn checked against the
+    plain VJP's)."""
     import torch
 
     from snipper_tpu_torch.ops.msda import (ms_deform_attn_torch,
                                             ms_deform_attn_torch_vjp,
                                             msda_backward)
 
-    cases = [("tiny", 2, [(6, 9), (3, 5), (2, 2)], 4, 8, 37, 3, False)] \
+    cases = [("tiny", 2, [(6, 9), (3, 5), (2, 2)], 4, 8, 37, 3, False),
+             ("tiny_global", 2, [(250, 200), (3, 5)], 2, 8, 37, 3, False)] \
         + TRAIN_CASES + TP2_CASES
     set_tf32(False)
     res = {}
@@ -683,11 +694,15 @@ def phase_backward():
         for dt in (torch.float32, torch.bfloat16):
             v, go = value.to(dt), grad_out.to(dt)
             got = msda_backward(v, shapes, loc, attn, go)
+            again = msda_backward(v, shapes, loc, attn, go)[0]
             want = ms_deform_attn_torch_vjp(v, shapes, loc, attn, go)
             torch.cuda.synchronize()
-            check(all(t.dtype == torch.float32 for t in got),
+            check([t.dtype for t in got] == [dt] + [torch.float32] * 2,
                   f"msda_backward {name}: output dtypes "
                   f"{[t.dtype for t in got]}")
+            check(torch.equal(got[0], again),
+                  f"msda_backward {name}: two calls gave other d_value "
+                  f"bits")
             errs = _grad_errors(got, want, bf16=dt == torch.bfloat16)
             tag = "f32" if dt == torch.float32 else "bf16"
             for n_, (err, tol) in zip(names, errs):
@@ -761,7 +776,7 @@ def phase_backward():
                 f"{row[f'{tag}_plain_ms']:.4f} ms; bound {bound * 1e3:.2f}"
                 f" us by {by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} "
                 f"GFLOP); {lib_note}")
-            del got, want
+            del got, again, want
         res[name] = row
         del value, loc, attn, grad_out
     torch.cuda.empty_cache()
@@ -1370,8 +1385,8 @@ def breakdown(fn, top=8, reps=5, need=("msda_forward",)):
     """Device time of one call of ``fn`` by kernel (torch.profiler), its
     wall time (CUDA events, median of ``reps``) and the device's busy
     share of that wall time. ``need``: the kernels that ``fn`` launches
-    whose times are reported apart; their launches in the profiled call
-    are counted by name (``launches``)."""
+    whose times are reported apart; their calls in the profiled call are
+    counted by each one's ``CALL_KERNEL`` (``launches``)."""
     import torch
 
     for _ in range(2):
@@ -1392,7 +1407,8 @@ def breakdown(fn, top=8, reps=5, need=("msda_forward",)):
                 msda_backward_ms=msda_us["msda_backward"], top=rows,
                 kernel_launches=sum(e.count for e in kernels),
                 launches={name: sum(e.count for e in kernels
-                                    if name in e.key) for name in need})
+                                    if CALL_KERNEL.get(name, name) in e.key)
+                          for name in need})
 
 
 def forward_breakdown(model, x):
@@ -3080,7 +3096,7 @@ def phase_train_agreement(cfg=None, name="canonical_t4_f2", tol_loss=1e-4,
     VJP on the card. Tolerances: the loss within ``tol_loss`` of its size;
     each gradient tensor within ``tol_grad`` of its largest entry (at
     least 1e-3 of the largest gradient anywhere): f32 sums in other orders
-    through every layer, and d_value's atomics. The plain step also solves
+    through every layer. The plain step also solves
     the matching with the plain ``lsa_rows``: every decoder layer's
     assignment must be the same, the kernel step's in one launch and one
     launch of each MSDA kernel per layer (counts at 0 just before the

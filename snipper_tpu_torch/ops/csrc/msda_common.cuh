@@ -1,14 +1,14 @@
 // What the two MSDA kernels (msda_forward.cu, msda_backward.cu) share: the
 // level table, the thread-group plan, the tap geometry in grid_sample's steps
-// and 16-byte vector loads, stores and atomic adds.
+// and 16-byte vector loads and stores.
 //
 // Thread groups. One group of G threads serves one (n, q, h); thread j of
 // the group holds the channel vectors j, j + G, ... of the row, a vector
-// being 16 bytes (4 f32 or 8 bf16 channels; the backward reads bf16 as 4
-// channels) when D is a multiple of that and the rows are aligned, else one
-// channel (the scalar path, chosen from the sizes). Groups are packed over
-// the whole block, across warps (G = 12 at D = 48 in f32: 21 groups on 252
-// of 256 threads; G = 6 in bf16: 42 groups). A block owns one (n, h) and a run of consecutive queries, one
+// being 16 bytes (4 f32 or 8 bf16 channels) when D is a multiple of that
+// and the rows are aligned, else one channel (the scalar path, chosen from
+// the sizes). Groups are packed over the whole block, across warps (G = 12
+// at D = 48 in f32: 21 groups on 252 of 256 threads; G = 6 in bf16: 42
+// groups). A block owns one (n, h) and a run of consecutive queries, one
 // per group, so neighbouring queries, whose taps touch neighbouring
 // pixels, share the block's L1.
 //
@@ -98,17 +98,23 @@ static inline bool fits_int32(int64_t N, int64_t S, int64_t H, int64_t D,
 }
 
 // Tap geometry in grid_sample's steps (align_corners=False, zeros off the
-// map): g = 2u - 1, x = ((g + 1) * W - 1) / 2, floor, and the weights
-// x1 - x, x - x0 along each axis. The in-map tests are made on floats, so a
-// location far off the map never overflows an integer.
+// map): g = 2u - 1, x = ((g + 1) * W - 1) / 2 (tap_xy), floor, and the
+// weights x1 - x, x - x0 along each axis. The in-map tests are made on
+// floats, so a location far off the map never overflows an integer.
+__device__ __forceinline__ float2 tap_xy(float u, float v, const Levels& lv,
+                                         int l) {
+  const float gx = 2.f * u - 1.f;
+  const float gy = 2.f * v - 1.f;
+  return make_float2(((gx + 1.f) * (float)lv.w[l] - 1.f) / 2.f,
+                     ((gy + 1.f) * (float)lv.h[l] - 1.f) / 2.f);
+}
+
 __device__ __forceinline__ Tap make_tap(float u, float v, float a,
                                         const Levels& lv, int l) {
   const int hl = lv.h[l], wl = lv.w[l];
   const float fw = (float)wl, fh = (float)hl;
-  const float gx = 2.f * u - 1.f;
-  const float gy = 2.f * v - 1.f;
-  const float x = ((gx + 1.f) * fw - 1.f) / 2.f;
-  const float y = ((gy + 1.f) * fh - 1.f) / 2.f;
+  const float2 xy = tap_xy(u, v, lv, l);
+  const float x = xy.x, y = xy.y;
   const float x0f = floorf(x), y0f = floorf(y);
   const float x1f = x0f + 1.f, y1f = y0f + 1.f;
   Tap t;
@@ -205,21 +211,6 @@ struct VecIO<__nv_bfloat16, 8> {
 };
 
 template <>
-struct VecIO<__nv_bfloat16, 4> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float* v) {
-    const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
-    const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float2 f = __bfloat1622float2(b[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-};
-
-template <>
 struct VecIO<__nv_bfloat16, 1> {
   static __device__ __forceinline__ void load(const __nv_bfloat16* p,
                                               float* v) {
@@ -245,23 +236,5 @@ __device__ __forceinline__ void load_corners(const Tap& tp, const T* p,
 #pragma unroll
       for (int e = 0; e < VEC; ++e) v[c][e] = 0.f;
     }
-  }
-}
-
-// Add VEC f32 values to global memory: one vector atomic (float4, compute
-// capability 9.x) for VEC = 4, scalar ones otherwise. (The float4 overload
-// exists only in the device pass for sm_90; the host pass parses the other.)
-template <int VEC>
-__device__ __forceinline__ void atomic_add_vec(float* p, const float* v) {
-  if constexpr (VEC == 4) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-    atomicAdd(reinterpret_cast<float4*>(p),
-              make_float4(v[0], v[1], v[2], v[3]));
-#else
-    for (int k = 0; k < 4; ++k) atomicAdd(p + k, v[k]);
-#endif
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) atomicAdd(p + i, v[i]);
   }
 }

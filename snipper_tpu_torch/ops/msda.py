@@ -41,7 +41,7 @@ MAX_LEVELS = 8  # MSDA_MAX_LEVELS in the kernels
 MAX_BACKWARD_D = 128  # grad_out held in registers: msda_backward.cu
 # pointer arguments of each library's C entry points (one per value dtype),
 # before the sizes (N, S, H, D, Lq, L, P), the level table and the stream
-_N_POINTERS = {"msda_forward": 4, "msda_backward": 7}
+_N_POINTERS = {"msda_forward": 4, "msda_backward": 9}
 
 
 def ms_deform_attn_torch(value: torch.Tensor,
@@ -218,16 +218,35 @@ def msda_forward_flops(value_shape, shapes, loc_shape, attn_shape,
     return N * Lq * H * L * P * (8 * value_shape[-1] + 8)
 
 
+def backward_plan(N: int, S: int, H: int, Lq: int, P: int,
+                  spatial_shapes: Sequence[Tuple[int, int]]):
+    """How ``msda_backward`` sums ``d_value``, from the shapes alone:
+    ``(index_int32s, segs_int32s)``, the sizes of its scratch.
+
+    The taps are sorted on the card by cell, the nw corner of their four,
+    and each value row's owner sums the taps of the four cells it is a
+    corner of, in a fixed order, into a ``d_value`` of the value's dtype.
+    The scratch is the index, ``N*H*L*Lq*P`` entries of four int32 (query,
+    attn, x, y), and the cells' segments, ``N*H*C`` pairs of int32,
+    ``C = sum_l (h_l + 1)(w_l + 1)``. Raises ``ValueError`` for ``2^31`` taps or more in one (frame, head),
+    which the index's int32 positions cannot number."""
+    taps = len(spatial_shapes) * Lq * P
+    if taps >= 2 ** 31:
+        raise ValueError(f"msda_backward takes fewer than 2^31 taps per "
+                         f"frame and head (got {taps})")
+    cells = sum((h + 1) * (w + 1) for h, w in spatial_shapes)
+    return N * H * taps * 4, N * H * cells * 2
+
+
 def msda_backward(value: torch.Tensor,
                   spatial_shapes: Sequence[Tuple[int, int]],
                   loc: torch.Tensor, attn: torch.Tensor,
                   grad_out: torch.Tensor):
-    """Launch the backward kernel on the current stream through the
+    """Launch the backward kernels on the current stream through the
     registered operator; same contract as :func:`ms_deform_attn_torch_vjp`:
-    ``(d_value, d_loc, d_attn)``, all three f32 whatever the value's dtype
-    (the autograd formula casts ``d_value`` to a bf16 value's dtype).
-    ``grad_out [N, Lq, H*D]`` must have the value's dtype. Raises on
-    anything the kernel does not take."""
+    ``(d_value, d_loc, d_attn)``, ``d_value`` in the value's dtype, the
+    other two f32. ``grad_out [N, Lq, H*D]`` must have the value's dtype.
+    Raises on anything the kernels do not take."""
     _check_backward_inputs(value, spatial_shapes, loc, attn, grad_out)
     return torch.ops.snipper_tpu_torch.msda_backward(
         value, flat_shapes(spatial_shapes), loc, attn, grad_out)
@@ -256,7 +275,8 @@ def _msda_backward_op(value: torch.Tensor, shapes: List[int],
                       loc: torch.Tensor, attn: torch.Tensor,
                       grad_out: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The operator's CUDA body: one launch, counted in
+    """The operator's CUDA body: one call of the backward's three kernels,
+    with the scratch :func:`backward_plan` sizes, counted in
     ``ms_deform_attn.backward_launches``."""
     spatial_shapes = _pairs(shapes)
     N, S, H, D, Lq, L, P = _check_backward_inputs(value, spatial_shapes,
@@ -264,8 +284,11 @@ def _msda_backward_op(value: torch.Tensor, shapes: List[int],
     kind = "f32" if value.dtype == torch.float32 else "bf16"
     fn = getattr(_kernel_lib("msda_backward"), f"msda_backward_{kind}")
     dev = value.device
-    # the kernel adds into d_value with atomics, so it starts at zero
-    d_value = torch.zeros(N, S, H, D, dtype=torch.float32, device=dev)
+    n_index, n_segs = backward_plan(N, S, H, Lq, P, spatial_shapes)
+    # every row of d_value is written once, in the value's dtype
+    d_value = torch.empty(N, S, H, D, dtype=value.dtype, device=dev)
+    index = torch.empty(n_index, dtype=torch.int32, device=dev)
+    segs = torch.empty(n_segs, dtype=torch.int32, device=dev)
     d_loc = torch.empty(N, Lq, H, L, P, 2, dtype=torch.float32, device=dev)
     d_attn = torch.empty(N, Lq, H, L, P, dtype=torch.float32, device=dev)
     shapes_c, starts_c = _level_table(spatial_shapes)
@@ -273,7 +296,8 @@ def _msda_backward_op(value: torch.Tensor, shapes: List[int],
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
                  grad_out.data_ptr(), d_value.data_ptr(), d_loc.data_ptr(),
-                 d_attn.data_ptr(), N, S, H, D, Lq, L, P,
+                 d_attn.data_ptr(), index.data_ptr(), segs.data_ptr(),
+                 N, S, H, D, Lq, L, P,
                  ctypes.cast(shapes_c, ctypes.c_void_p),
                  ctypes.cast(starts_c, ctypes.c_void_p), stream)
     if err != 0:
@@ -286,7 +310,7 @@ def _msda_backward_op(value: torch.Tensor, shapes: List[int],
 @_msda_backward_op.register_fake
 def _(value, shapes, loc, attn, grad_out):
     f32 = torch.float32
-    return (value.new_empty(value.shape, dtype=f32),
+    return (value.new_empty(value.shape),
             loc.new_empty(loc.shape, dtype=f32),
             attn.new_empty(attn.shape, dtype=f32))
 
@@ -298,13 +322,12 @@ def _setup_context(ctx, inputs, output):
 
 
 def _backward(ctx, grad_out):
-    """The two kernels as one differentiable op: the backward kernel on
-    the saved value, loc and attn; the f32 ``d_value`` of a bf16 value is
-    cast to bf16, each gradient in its input's dtype."""
+    """The two kernels as one differentiable op: the backward on the saved
+    value, loc and attn, each gradient in its input's dtype."""
     value, loc, attn = ctx.saved_tensors
     d_value, d_loc, d_attn = torch.ops.snipper_tpu_torch.msda_backward(
         value, ctx.shapes, loc, attn, grad_out.to(value.dtype).contiguous())
-    return d_value.to(value.dtype), None, d_loc, d_attn
+    return d_value, None, d_loc, d_attn
 
 
 _msda_forward_op.register_autograd(_backward, setup_context=_setup_context)
@@ -316,7 +339,7 @@ def ms_deform_attn(value: torch.Tensor,
     """MSDA, by device: the plain version for CPU tensors, the two kernels
     through the registered operator for CUDA tensors.
     ``ms_deform_attn.launches`` counts the forward kernel's launches,
-    ``ms_deform_attn.backward_launches`` the backward kernel's; the
+    ``ms_deform_attn.backward_launches`` the backward's calls; the
     ``launches_by_dtype`` and ``backward_launches_by_dtype`` dicts split
     them by the value's dtype (``"f32"``, ``"bf16"``)."""
     if value.device.type == "cpu":

@@ -129,10 +129,10 @@ def test_tiny_model_cuda_matches_cpu(cuda):
 def test_backward_kernel_matches_plain_vjp(cuda, value_dtype):
     """d_value, d_loc, d_attn against autograd through the plain version.
     f32: within 1e-5 of each gradient's largest entry (d_value is summed
-    with atomics in a varying order; d_loc carries the level width as a
-    factor). The kernel gives all three in f32. bf16 value: the plain
-    d_value is rounded once to bf16, 1e-2 of its largest entry; d_loc and
-    d_attn are f32 sums of the same inputs."""
+    in another order; d_loc carries the level width as a factor). d_value
+    comes in the value's dtype, d_loc and d_attn in f32. bf16 value: both
+    d_values are an f32 sum rounded once to bf16, 1e-2 of the largest
+    entry; d_loc and d_attn are f32 sums of the same inputs."""
     value, shapes, loc, attn = _inputs(cuda, 7, value_dtype=value_dtype)
     grad_out = torch.from_numpy(np.random.default_rng(8).standard_normal(
         (value.shape[0], loc.shape[1], value.shape[2] * value.shape[3])
@@ -142,7 +142,7 @@ def test_backward_kernel_matches_plain_vjp(cuda, value_dtype):
     assert ms_deform_attn.backward_launches == before + 1
     want = ms_deform_attn_torch_vjp(value, shapes, loc, attn, grad_out)
     torch.cuda.synchronize()
-    assert all(g.dtype == torch.float32 for g in got)
+    assert [g.dtype for g in got] == [value_dtype] + [torch.float32] * 2
     for i, (g, w) in enumerate(zip(got, want)):
         rel = 1e-2 if (i == 0 and value_dtype == torch.bfloat16) else 1e-5
         tol = rel * max(1.0, w.float().abs().max().item())
@@ -152,9 +152,9 @@ def test_backward_kernel_matches_plain_vjp(cuda, value_dtype):
 @pytest.mark.parametrize("value_dtype", [torch.float32, torch.bfloat16])
 def test_cuda_output_carries_grad_fn(cuda, value_dtype):
     """A CUDA output that requires grad has a grad_fn, and backward
-    launches the backward kernel: the gradients reach value, loc and
-    attn, each in its input's dtype (autograd casts the kernel's f32
-    d_value for a bf16 value)."""
+    launches the backward kernels: the gradients reach value, loc and
+    attn, each in its input's dtype (the kernels write d_value in the
+    value's)."""
     value, shapes, loc, attn = _inputs(cuda, 9, value_dtype=value_dtype)
     for t in (value, loc, attn):
         t.requires_grad_(True)
@@ -334,12 +334,95 @@ def test_msda_kernel_paths_match_plain(cuda, case, value_dtype):
     scale = max(1.0, want_out.float().abs().max().item())
     tol = 1e-2 * scale if bf16 else 1e-5
     assert (out.float() - want_out.float()).abs().max().item() <= tol
-    assert all(t.dtype == torch.float32 for t in got)
+    assert [t.dtype for t in got] == [value_dtype] + [torch.float32] * 2
     for i, (g, w) in enumerate(zip(got, want)):
         rel = 1e-2 if (i == 0 and bf16) else 1e-5
         tol = rel * max(1.0, w.float().abs().max().item())
         assert torch.isfinite(g).all()
         assert (g.float() - w.float()).abs().max().item() <= tol, i
+
+
+def _corner_case(device, value_dtype, shapes, N, NH, D, LQ, P, seed):
+    """(value, loc, attn, grad_out, hit) with every tap's pixel coordinate
+    x = u * w - 0.5 an integer k in [-1, w - 1] plus a fraction in
+    [0.1, 0.9] (and so for y): no coordinate lies near a pixel's edge, so
+    which corners are in the map is the same on every side, and corners
+    fall off the left, right, top and bottom edges. ``hit`` [N, S, NH]
+    marks the value rows some in-map corner falls on."""
+    rng = np.random.default_rng(seed)
+    L = len(shapes)
+    S = sum(h * w for h, w in shapes)
+    loc = np.empty((N, LQ, NH, L, P, 2))
+    hit = np.zeros((N, S, NH), bool)
+    n_i = np.arange(N)[:, None, None, None]
+    h_i = np.arange(NH)[None, None, :, None]
+    start = 0
+    for lvl, (h, w) in enumerate(shapes):
+        kx = rng.integers(-1, w, (N, LQ, NH, P))
+        ky = rng.integers(-1, h, (N, LQ, NH, P))
+        fx, fy = (rng.uniform(0.1, 0.9, (N, LQ, NH, P)) for _ in range(2))
+        loc[:, :, :, lvl, :, 0] = (kx + fx + 0.5) / w
+        loc[:, :, :, lvl, :, 1] = (ky + fy + 0.5) / h
+        for dy in (0, 1):
+            for dx in (0, 1):
+                x, y = kx + dx, ky + dy
+                ok = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+                r = np.broadcast_to(start + y * w + x, ok.shape)
+                hit[np.broadcast_to(n_i, ok.shape)[ok], r[ok],
+                    np.broadcast_to(h_i, ok.shape)[ok]] = True
+        start += h * w
+
+    def put(x, dtype):
+        return torch.from_numpy(x.astype(np.float32)).to(device, dtype)
+
+    return (put(rng.standard_normal((N, S, NH, D)), value_dtype),
+            put(loc, torch.float32),
+            put(rng.uniform(0, 1, (N, LQ, NH, L, P)), torch.float32),
+            put(rng.standard_normal((N, LQ, NH * D)), value_dtype),
+            torch.from_numpy(hit).to(device))
+
+
+@pytest.mark.parametrize("value_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [8, 6])
+@pytest.mark.parametrize("kind", ["encoder", "decoder", "large_level"])
+def test_backward_gather_matches_plain_vjp(cuda, kind, D, value_dtype):
+    """The backward (the taps sorted on the card by cell and each value
+    row summed by its owner) against the plain VJP, at an encoder-like
+    shape (Lq = S), a decoder-like one (Lq much smaller than S) and one
+    whose first level has more cells than the index kernel counts in
+    shared memory (121 x 111 > 12288, ``MSDA_INDEX_SHARED_CELLS``, so its
+    counters live in global memory; 2000 taps on 13431 cells, so cells
+    share taps), on the vector path (D = 8) and the scalar one (D = 6),
+    with corners off every edge: each gradient within 1e-5 of its largest
+    entry, a bf16 d_value within one bf16 unit (both an f32 sum rounded
+    once to bf16); rows no in-map corner falls on exactly zero; a second
+    call bit-equal in all three outputs; each call counted once."""
+    shapes, N, NH, LQ, P = {
+        "encoder": (SHAPES, 2, 4, 73, 3),
+        "decoder": ([(20, 30), (10, 15), (5, 8)], 2, 4, 5, 2),
+        "large_level": ([(120, 110), (5, 8)], 1, 2, 500, 4),
+    }[kind]
+    value, loc, attn, grad_out, hit = _corner_case(
+        cuda, value_dtype, shapes, N, NH, D, LQ, P, seed=31)
+    assert value.shape[1] == LQ or kind != "encoder"
+    before = ms_deform_attn.backward_launches
+    got = msda_backward(value, shapes, loc, attn, grad_out)
+    again = msda_backward(value, shapes, loc, attn, grad_out)
+    want = ms_deform_attn_torch_vjp(value, shapes, loc, attn, grad_out)
+    torch.cuda.synchronize()
+    assert ms_deform_attn.backward_launches == before + 2
+    assert [t.dtype for t in got] == [value_dtype] + [torch.float32] * 2
+    bf16 = value_dtype == torch.bfloat16
+    for i, (g, w) in enumerate(zip(got, want)):
+        rel = 2.0 ** -7 if (i == 0 and bf16) else 1e-5
+        tol = rel * max(1.0, w.float().abs().max().item())
+        assert (g.float() - w.float()).abs().max().item() <= tol, i
+    # the encoder-like taps reach every row, the others leave rows untouched
+    share = hit.float().mean().item()
+    assert {"encoder": share == 1, "decoder": share < 0.2,
+            "large_level": 0 < share < 1}[kind], share
+    assert torch.count_nonzero(got[0][~hit]).item() == 0
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_tiny_train_step_cuda_matches_cpu(cuda):

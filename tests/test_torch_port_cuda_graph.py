@@ -31,12 +31,12 @@ pytestmark = pytest.mark.cuda
 
 # Each step runs twice from one state, one seed and one batch: eagerly,
 # then on the graph's path; the run goes on from the graph's result, so
-# the two never drift apart over the steps. The MSDA backward kernel adds
-# into d_value with atomics, as torch's scatter-adds in the backward do, in
-# an order that can change from run to run: two eager steps from one state
-# differ in the last bits of the gradients (at canonical widths always, at
-# tiny ones now and then), and the bf16 recipe's casts can carry such a
-# bit a bf16 unit further. So no step is held to bit equality: the graph's
+# the two never drift apart over the steps. The MSDA backward sums each
+# value row in one fixed order, but torch's scatter-adds in the backward
+# add with atomics, in an order that can change from run to run: two eager
+# steps from one state can differ in the last bits of the gradients, and
+# the bf16 recipe's casts can carry such a bit a bf16 unit further. So no
+# step is held to bit equality: the graph's
 # step is held to the eager step by ``GAP``, each tensor's gap in norm
 # over the eager step's change of it (the parameters, the moments) or over
 # the metric. Two eager steps read at most a tenth of it
@@ -169,13 +169,16 @@ def _captured(state):
 
 def _replay_kernels(fn):
     """The MSDA and assignment kernels that one call of ``fn`` ran on the
-    card, by name (torch.profiler's counts)."""
+    card, by name (torch.profiler's counts): the forward, the backward's
+    three (taps, index, gather: each once per backward call on the gather
+    path) and the assignment."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    names = ("msda_forward_kernel", "msda_backward_kernel",
+    names = ("msda_forward_kernel", "msda_backward_taps_kernel",
+             "msda_backward_index_kernel", "msda_backward_gather_kernel",
              "lsa_rows_kernel")
     return [sum(e.count for e in prof.key_averages() if n in e.key)
             for n in names]
@@ -203,14 +206,14 @@ def test_graphed_step_matches_eager(cuda, preset, dropout):
         state, state.graph.criterion, batches[0], gen,
         mixed_precision=True))
     assert StepGraph.replays == replays + 1
-    assert kernels == [n, n, 1]
+    assert kernels == [n, n, n, n, 1]
 
 
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
 @pytest.mark.parametrize("preset", list(PRESETS))
 def test_two_eager_steps_gap(cuda, preset, dropout):
     """Two eager steps from one state, for the record of ``GAP``: apart by
-    the atomics' order alone."""
+    the order of torch's atomics alone."""
     cfg = PRESETS[preset].replace(dropout=dropout)
     _, gaps, _ = _paired_steps(cfg, cuda, _batches(cfg, cuda),
                                second_eager=True)

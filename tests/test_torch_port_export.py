@@ -298,8 +298,9 @@ def test_registered_forward_op_opcheck_and_export():
 
 
 def test_registered_ops_schemas_and_fakes():
-    """The backward op's fake gives the kernel's f32 gradients in the
-    inputs' shapes, for either value dtype; neither op has a CPU kernel."""
+    """The backward op's fake gives the kernels' gradients in the inputs'
+    shapes, d_value in the value's dtype and d_loc, d_attn in f32, for
+    either value dtype; neither op has a CPU kernel."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from snipper_tpu_torch.ops import msda
@@ -320,7 +321,8 @@ def test_registered_ops_schemas_and_fakes():
         assert tuple(out.shape) == (2, 7, 32) and out.dtype == dt
         assert [tuple(t.shape) for t in grads] == [
             (2, 69, 4, 8), (2, 7, 4, 2, 3, 2), (2, 7, 4, 2, 3)]
-        assert all(t.dtype == torch.float32 for t in grads)
+        assert [t.dtype for t in grads] == [dt, torch.float32,
+                                            torch.float32]
     with pytest.raises(ValueError, match="CUDA"):
         msda.msda_forward(torch.zeros(1, 4, 1, 2), [(2, 2)],
                           torch.zeros(1, 3, 1, 1, 1, 2),

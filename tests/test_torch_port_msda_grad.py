@@ -25,7 +25,8 @@ from snipper_tpu.ops.deform_attn import \
 from snipper_tpu.ops.pallas_deform import ms_deform_attn_pallas_grad
 from snipper_tpu_torch.ops.deform_attn import (temporal_adjacency,
                                                temporal_deform_sample)
-from snipper_tpu_torch.ops.msda import (ms_deform_attn, ms_deform_attn_torch,
+from snipper_tpu_torch.ops.msda import (backward_plan, ms_deform_attn,
+                                        ms_deform_attn_torch,
                                         ms_deform_attn_torch_vjp,
                                         msda_backward)
 
@@ -143,3 +144,55 @@ def test_backward_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         msda_backward(torch.from_numpy(v), SHAPES, torch.from_numpy(loc),
                       torch.from_numpy(w), torch.from_numpy(g))
+
+
+CANONICAL = [(75, 100), (38, 50), (19, 25)]   # 600x800 at strides 8/16/32
+
+
+@pytest.mark.parametrize("case", [
+    "train_encoder", "train_decoder", "largest_level", "wide_level",
+    "many_taps"])
+def test_backward_plan_from_shapes(case):
+    """The backward's scratch follows from the shapes alone: the index
+    (four int32 per tap, N*H*L*Lq*P) and the cells' segments (a pair per
+    cell, N*H*sum (h+1)(w+1)), on either side of the level size at which
+    the index kernel's counters leave shared memory (12288 cells); 2^31
+    taps or more in one (frame, head) refused."""
+    N, shapes, H, Lq, P = {
+        # canonical_t4_f2 at batch 8: B*T and B*(T+Tf) frames
+        "train_encoder": (32, CANONICAL, 8, 9875, 4),
+        "train_decoder": (48, CANONICAL, 8, 60, 4),
+        "largest_level": (1, [(95, 127), (3, 5)], 2, 7, 2),
+        "wide_level": (1, [(95, 128), (3, 5)], 2, 7, 2),
+        "many_taps": (1, [(6, 9)], 1, 2 ** 31, 1),
+    }[case]
+    S, L = sum(h * w for h, w in shapes), len(shapes)
+    cells = sum((h + 1) * (w + 1) for h, w in shapes)
+    if case == "many_taps":
+        with pytest.raises(ValueError, match="2\\^31 taps"):
+            backward_plan(N, S, H, Lq, P, shapes)
+        return
+    n_index, n_segs = backward_plan(N, S, H, Lq, P, shapes)
+    assert (n_index, n_segs) == (N * H * L * Lq * P * 4, N * H * cells * 2)
+    if case == "train_encoder":   # 485 MB of index, 21 MB of segments
+        assert (n_index * 4, n_segs * 4) == (485_376_000, 20_858_880)
+
+
+def test_backward_plan_limit_matches_kernel_source():
+    """The kernel's ``MSDA_INDEX_SHARED_CELLS`` counters fit in the 48 KB
+    a block gets without opting in, and the largest level of every preset
+    (stride 8 of its input) is within it, so no preset's backward counts
+    in global memory."""
+    import re
+
+    from snipper_tpu_torch.config import PRESETS, Config
+    from snipper_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "msda_backward.cu").read_text()
+    got = re.search(r"#define MSDA_INDEX_SHARED_CELLS (\d+)", src)
+    assert got
+    limit = int(got.group(1))
+    assert 0 < limit * 4 <= 48 * 1024
+    for name in PRESETS:
+        h, w = getattr(Config, name)().input_shape
+        assert (-(-h // 8) + 1) * (-(-w // 8) + 1) <= limit, name
